@@ -1,0 +1,1392 @@
+"""The fused sweep runner on PyTorch: the whole run loop in one CUDA kernel.
+
+Port of ``acme_tpu/ops/fused.py`` (``FusedRunner``): a compiled
+``DiscreteModel`` runs thousands of circuit instances ("lanes", e.g. a
+drive x tone pot grid) through the complete per-sample pipeline of the
+reference's step -- ordered subsystem Newton solves, output row, state
+update -- with
+
+  * operating-point centering and power-of-two state balancing, computed
+    once in float64 on the host (the preparation below is the JAX
+    package's, line for line);
+  * a float32 state carried as unevaluated (hi, lo) pairs, read out and
+    updated with error-free-transform (EFT) dot products;
+  * the two-tier Newton of the JAX kernel: one unguarded fast step, a
+    plain-f32 polish loop, a compensated or double-float ("df") verdict
+    with a df elimination on structurally ill-conditioned subsystems,
+    and, for lanes that fail the keep test, the gated Newton ->
+    homotopy -> df-Newton rescue ladder.
+
+Two implementations of that step share one preparation (``_Plan``):
+
+  * the kernel, ``csrc/fused.cu``: one CUDA thread per lane runs the whole
+    time loop with its state in registers (built by ``build.py`` from the
+    hand-written sources plus the model header ``emit.py`` writes);
+  * the plain version, :func:`plain_run`: the same step in torch ops
+    vectorised over lanes, with every loop masked per lane.
+
+:func:`fused_step` launches the kernel for CUDA tensors and takes the
+plain version only for CPU tensors.  Loops are per lane in both: a
+lane's result never depends on its neighbours (the JAX kernel's group-wide
+early exits give the same per-lane results, except for the iteration
+counts, which here count each lane's own trips).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import warnings
+from typing import NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from . import dfmath as dfm
+from .. import xp as txp
+from .linsolve_tiny import solve_rows
+
+__all__ = ["FusedRunner", "FusedInfo", "fused_step", "plain_run",
+           "host_step", "KERNEL_LAUNCHES", "LAUNCH_EVENTS"]
+
+# launches of the CUDA kernel made by fused_step (and nowhere else)
+KERNEL_LAUNCHES = 0
+# set to a list to time each launch: fused_step appends its (start, end)
+# CUDA events, recorded on the launch stream just around the kernel
+LAUNCH_EVENTS = None
+
+_LEVEL = "ROADMAP Queue 1: the level sweep"
+_CONFIG = "ROADMAP Queue 2: the other step configurations"
+_UNPORTED = {
+    "lane_scale_idx": _LEVEL,
+    "powerup": _LEVEL + " (two-phase power-up)",
+    "extrapolate": _LEVEL + " (extrapolate='track')",
+    "compensated": _CONFIG,
+    "df_state": _CONFIG,
+    "df_polish": _CONFIG,
+    "df_solve": _CONFIG,
+    "fast_verify": _CONFIG,
+    "fast_keep": _CONFIG,
+    "polish_only": _CONFIG,
+    "pivot": _CONFIG,
+    "verdict_jac": _CONFIG,
+    "fast_iters": _CONFIG,
+    "rel_tol": _CONFIG,
+    "model": "ROADMAP Queue 1: per-lane model tables (_Var)",
+    "mesh": "ROADMAP Queue 1: lanes split across GPUs",
+}
+
+
+def _unported(knob, value):
+    raise NotImplementedError(
+        f"FusedRunner({knob}={value!r}) is not ported to acme_tpu_torch yet "
+        f"({_UNPORTED[knob]})")
+
+
+class FusedInfo(NamedTuple):
+    """Per-lane run statistics (see ``acme_tpu.ops.fused.FusedInfo``).
+
+    ``fails`` (L,): samples on which any subsystem missed its acceptance
+    gate.  ``iters`` (L, nsub): Newton evaluations per subsystem, counting
+    each lane's own loop trips.  ``floored`` (L,): samples accepted above
+    the gate through the polish floor-stall certificate."""
+    fails: torch.Tensor
+    iters: torch.Tensor
+    floored: torch.Tensor = None
+
+
+# -- EFT helpers (fused.py:120-155) -------------------------------------------
+
+def _two_sum(a, b):
+    sm = a + b
+    bb = sm - a
+    err = (a - (sm - bb)) + (b - bb)
+    return sm, err
+
+
+def _split_rt(a):
+    """Dekker split of a runtime float32 tensor."""
+    c = 4097.0 * a
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def _const_split(c):
+    """(a, ah, al, rem): a = float32(c), (ah, al) its Dekker split and
+    rem = float32(c - a) the truncation remainder."""
+    a = np.float32(c)
+    t = np.float32(np.float32(4097.0) * a)
+    ah = np.float32(t - np.float32(t - a))
+    al = np.float32(a - ah)
+    rem = np.float32(float(c) - float(a))
+    return float(a), float(ah), float(al), float(rem)
+
+
+def _prod_const(cs, v, vh, vl):
+    """Error-free product of a pre-split constant with a pre-split tensor,
+    plus the constant's f64 truncation remainder."""
+    a, ah, al, rem = cs
+    pr = a * v
+    err = ((ah * vh - pr) + ah * vl + al * vh) + al * vl
+    if rem != 0.0:
+        err = err + rem * v
+    return pr, err
+
+
+def _nz(cs):
+    return cs[0] != 0.0 or cs[3] != 0.0
+
+
+# -- runner -------------------------------------------------------------------
+
+class FusedRunner:
+    """Compile a DiscreteModel into a fused sweep runner.
+
+    ``run(u_time (nu_t, T), lane_values (L, nu_l), state=None)``
+    -> ``(y (L, ny, T), state, FusedInfo)``.
+
+    Inputs listed in ``lane_input_idx`` are per-lane constants (the sweep
+    axis); the rest come from the shared time series.  ``device`` holds
+    the state and outputs: a CUDA device runs the kernel, the CPU the
+    plain version.  The defaults are the production configuration of the
+    JAX package's bench (``fast_iters=1``, ``polish_fixed=2``,
+    ``df_polish="comp_final"``, ``df_solve="auto"``, ``fast_verify="merge"``).
+    """
+
+    def __init__(self, model, lane_input_idx: Sequence[int] = (), *,
+                 device="cpu", lane_scale_idx: Sequence[int] = (),
+                 newton_iters: int = 192, tol: float = 1e-9,
+                 step_clip: float = 1.0, center: bool = True,
+                 center_u=None, extrapolate=True, refine: int = 1,
+                 compensated: bool = True, df_state: bool = True,
+                 rel_tol: float = None, rel_gate: float = None,
+                 rel_tol_polish: float = None, polish_iters: int = 10,
+                 polish_fixed: int = 2, df_polish="comp_final",
+                 df_solve="auto", verdict_jac: str = "df",
+                 verdict_refine: int = None, pivot: bool = True,
+                 fast_iters: int = 1, fast_verify: str = "merge",
+                 polish_only: bool = False, fast_keep: str = "gate",
+                 stall_strikes: int = 2, plateau_strikes: int = 6,
+                 powerup=None, mesh=None):
+        if isinstance(model, (list, tuple)):
+            _unported("model", "[...]")
+        for knob, val, ok in (
+                ("lane_scale_idx", tuple(lane_scale_idx), ()),
+                ("extrapolate", extrapolate, True),
+                ("compensated", compensated, True),
+                ("df_state", df_state, True),
+                ("df_polish", df_polish, "comp_final"),
+                ("df_solve", df_solve, "auto"),
+                ("fast_verify", fast_verify, "merge"),
+                ("fast_keep", fast_keep, "gate"),
+                ("polish_only", polish_only, False),
+                ("pivot", pivot, True),
+                ("verdict_jac", verdict_jac, "df"),
+                ("mesh", mesh, None)):
+            if not (val is ok or (type(val) is type(ok) and val == ok)):
+                _unported(knob, val)
+        if powerup not in (None, "steady"):
+            _unported("powerup", powerup)
+        if int(fast_iters) < 1:
+            _unported("fast_iters", fast_iters)
+        if rel_tol is not None or rel_gate is not None \
+                or rel_tol_polish is not None:
+            _unported("rel_tol", (rel_tol, rel_gate, rel_tol_polish))
+        self.device = torch.device(device)
+        self.model = model
+        self.K = int(newton_iters)
+        self.fast_iters = int(fast_iters)
+        self.powerup_steady = powerup == "steady"
+        self.stall_strikes = int(stall_strikes)
+        self.plateau_strikes = int(plateau_strikes)
+        self.tol = float(tol)
+        self.step_clip = float(step_clip)
+        self.refine = int(refine)
+        self.polish_iters = max(1, int(polish_iters))
+        self.polish_fixed = max(0, int(polish_fixed))
+        self.verdict_refine = int(refine if verdict_refine is None
+                                  else verdict_refine)
+        self.lane_idx = tuple(int(i) for i in lane_input_idx)
+        self.time_idx = tuple(i for i in range(model.nu)
+                              if i not in self.lane_idx)
+        self.nx = model.nx
+        self.ny = model.ny
+        self.nn_total = model.nn()
+        self.nsub = model.nsubsystems
+        self.np_total = sum(model.np(k) for k in range(self.nsub))
+        self.dz_total = sum(model.nn(k) * model.np(k)
+                            for k in range(self.nsub))
+        self._steady_floors = None
+        self._prepare(model, center, center_u)
+        self.plan = _Plan(self)
+
+    # -- preparation (fused.py:563-757, float64 numpy) ------------------------
+    def _prepare(self, m, center, center_u):
+        self.u_ss = np.zeros(m.nu)
+        if center_u is not None:
+            self.u_ss = np.asarray(center_u, float).copy()
+        elif self.lane_idx:
+            for i in self.lane_idx:
+                self.u_ss[i] = 0.5  # pots at mid travel
+        x_ss, z_ss = self._center_of(m, center)
+        a = np.asarray(m.a, float)
+        b = np.asarray(m.b, float)
+        c = np.asarray(m.c, float)
+        x0_c = (np.asarray(m.x0, float) + a @ x_ss
+                + b @ self.u_ss + c @ z_ss - x_ss)
+        y0_c = (np.asarray(m.y0, float)
+                + np.asarray(m.dy, float) @ x_ss
+                + np.asarray(m.ey, float) @ self.u_ss
+                + np.asarray(m.fy, float) @ z_ss)
+        dy = np.asarray(m.dy, float)
+        dq_list = [np.asarray(m.dqs[k], float) for k in range(self.nsub)]
+        self.Tx = self._balance_states(a, b, c, dy, dq_list)
+        Tc_ = self.Tx[:, None] if m.nx else np.ones((0, 1))
+        Tr_ = self.Tx[None, :] if m.nx else np.ones((1, 0))
+        p = dict(
+            x_ss=x_ss, z_ss=z_ss,
+            a=a * (Tr_ / Tc_) if m.nx else a,
+            b=b / Tc_ if m.nx else b,
+            c=c / Tc_ if m.nx else c,
+            x0=(x0_c / self.Tx if m.nx else x0_c),
+            dy=dy * Tr_, ey=np.asarray(m.ey, float),
+            fy=np.asarray(m.fy, float), y0=y0_c,
+            dq=[d * Tr_ for d in dq_list],
+            eq=[np.asarray(m.eqs[k], float) for k in range(self.nsub)],
+            fqprev=[np.asarray(m.fqprevs[k], float)
+                    for k in range(self.nsub)],
+            fq=[np.asarray(m.fqs[k], float) for k in range(self.nsub)],
+            pexp=[np.asarray(m.pexps[k], float) for k in range(self.nsub)],
+            q0=[], dzdp0=[], tols=[], gates=[])
+        off = 0
+        for kk in range(self.nsub):
+            nn_k, np_k = m.nn(kk), m.np(kk)
+            q0 = (np.asarray(m.q0s[kk], float)
+                  + np.asarray(m.pexps[kk], float)
+                  @ (np.asarray(m.dqs[kk], float) @ x_ss
+                     + np.asarray(m.eqs[kk], float) @ self.u_ss
+                     + np.asarray(m.fqprevs[kk], float) @ z_ss)
+                  + np.asarray(m.fqs[kk], float) @ z_ss[off:off + nn_k])
+            p["q0"].append(q0)
+            off += nn_k
+            floor = float(self._floor_measure(kk, q0[:, None]).max()) \
+                if nn_k else 0.0
+            p["tols"].append(max(self.tol, 8.0 * floor))
+            p["gates"].append(max(96.0 * floor, 32.0 * self.tol))
+            res, Jq = m.nl_funcs[kk](np, q0)
+            J = Jq @ np.asarray(m.fqs[kk], float)
+            Jp = Jq @ np.asarray(m.pexps[kk], float)
+            try:
+                d0 = -np.linalg.solve(J, Jp)
+            except np.linalg.LinAlgError:
+                d0 = np.zeros((nn_k, np_k))
+            p["dzdp0"].append(d0)
+        self.prep = p
+        self.x_ss, self.z_ss = x_ss, z_ss
+        self.q0_c = p["q0"]
+        self.tols = list(p["tols"])
+        self.gates = list(p["gates"])
+        self.dzdp0 = p["dzdp0"]
+        # structural conditioning per subsystem (fused.py:692-737): the
+        # equilibrated cond(J) at the operating point; above 100 the
+        # verdict runs df physics and a df elimination (sub_fragile)
+        self.sub_fragile = []
+        self.sub_cond_eq = []
+        for kk in range(self.nsub):
+            ce_max = 0.0
+            if m.nn(kk):
+                with np.errstate(all="ignore"):
+                    _, Jq0 = m.nl_funcs[kk](np, p["q0"][kk])
+                    Je = np.asarray(Jq0 @ np.asarray(m.fqs[kk], float),
+                                    float)
+                    for _ in range(4):
+                        r = np.sqrt(np.abs(Je).max(1))
+                        r[(r == 0) | ~np.isfinite(r)] = 1.0
+                        Je = Je / r[:, None]
+                        c2 = np.sqrt(np.abs(Je).max(0))
+                        c2[(c2 == 0) | ~np.isfinite(c2)] = 1.0
+                        Je = Je / c2[None, :]
+                    try:
+                        ce = np.linalg.cond(Je)
+                    except np.linalg.LinAlgError:
+                        ce = np.inf
+                ce_max = float(ce) if np.isfinite(ce) else np.inf
+            self.sub_cond_eq.append(ce_max)
+            self.sub_fragile.append(ce_max > 100.0)
+
+    def _center_of(self, m, center):
+        if not (center and (m.nx or self.nn_total)):
+            return np.zeros(m.nx), np.zeros(self.nn_total)
+        from acme_tpu.runtime import operating_point, steadystate
+        try:
+            return steadystate(m, self.u_ss, return_z=True)
+        except Exception:
+            # the strict steady state fails on the chain-decomposed
+            # superover (ref runtests.jl:763-764); centering is exact for
+            # any center point, so the run-in operating point will do
+            try:
+                return operating_point(m, self.u_ss)
+            except Exception:
+                return np.zeros(m.nx), np.zeros(self.nn_total)
+
+    def _floor_measure(self, kk, q64, comp=True):
+        """Empirical float32 residual floor at the points ``q64`` (nq, L),
+        from the element physics in simulated kernel arithmetic."""
+        nl = self.model.nl_funcs[kk]
+        res64, _ = nl(np, q64)
+        qhi = q64.astype(np.float32)
+        res32, Jq32 = nl(np, qhi)
+        if comp:
+            qlo = (q64 - qhi.astype(np.float64)).astype(np.float32)
+            corr = np.einsum("ac...,c...->a...", Jq32, qlo)
+            res32 = res32 + corr
+        err = np.abs(res32.astype(np.float64) - res64)
+        return err.max(axis=0) if err.size else np.zeros(q64.shape[1:])
+
+    @staticmethod
+    def _balance_states(a, b, c, dy, dq_list, sweeps: int = 25):
+        """Per-state power-of-two scales equalizing writer and reader
+        coefficient magnitudes (fused.py:817-849)."""
+        nx = a.shape[0]
+        T = np.ones(nx)
+        if nx == 0:
+            return T
+        readers = [dy] + list(dq_list)
+        for _ in range(sweeps):
+            changed = False
+            for j in range(nx):
+                outs = [np.abs(a[i, j]) * T[j] / T[i]
+                        for i in range(nx) if i != j and a[i, j] != 0]
+                outs += [np.abs(r[i, j]) * T[j]
+                         for r in readers for i in range(r.shape[0])
+                         if r[i, j] != 0]
+                ins = [np.abs(a[j, k]) * T[k] / T[j]
+                       for k in range(nx) if k != j and a[j, k] != 0]
+                ins += [np.abs(v) / T[j]
+                        for v in np.concatenate([b[j, :], c[j, :]])
+                        if v != 0]
+                if not outs or not ins:
+                    continue
+                f = np.sqrt(max(outs) / max(ins))
+                k = int(np.round(np.log2(f)))
+                if k != 0:
+                    T[j] /= 2.0 ** k
+                    changed = True
+            if not changed:
+                break
+        return T
+
+    # -- state ----------------------------------------------------------------
+    def _tensor(self, arr):
+        return torch.as_tensor(np.ascontiguousarray(arr, np.float32),
+                               device=self.device)
+
+    def initial_state(self, lanes: int):
+        """Initial carry, (n, L) float32 tensors on the runner's device
+        (fused.py:2534-2598): x = 0, z = the initial operating point, and a
+        consistent extrapolation origin (wp, zw)."""
+        m, p = self.model, self.prep
+        x0v = np.zeros(1) if self.nx == 0 else -p["x_ss"] / self.Tx
+        xlo_v = x0v - x0v.astype(np.float32).astype(np.float64)
+        if self.nn_total:
+            z0 = (np.concatenate([np.asarray(z, float) for z in m.init_zs])
+                  - p["z_ss"])
+        else:
+            z0 = np.zeros(1)
+        dz0 = (np.concatenate([d.reshape(-1) for d in p["dzdp0"]])
+               if self.dz_total else np.zeros(1))
+        wp0 = np.zeros(max(self.np_total, 1))
+        if self.np_total:
+            u_c = -self.u_ss
+            off = 0
+            for kk in range(self.nsub):
+                npk = m.np(kk)
+                wp0[off:off + npk] = (
+                    p["dq"][kk] @ x0v[:self.nx]
+                    + np.asarray(m.eqs[kk], float) @ u_c
+                    + np.asarray(m.fqprevs[kk], float) @ z0[:self.nn_total])
+                off += npk
+
+        def per_lane(v):
+            return self._tensor(np.repeat(np.asarray(v, float)[:, None],
+                                          lanes, axis=1))
+
+        zeros = lambda n: torch.zeros((n, lanes), dtype=torch.float32,
+                                      device=self.device)
+        return {"x": per_lane(x0v), "xlo": per_lane(xlo_v),
+                "z": per_lane(z0), "zlo": zeros(max(self.nn_total, 1)),
+                "zw": per_lane(z0), "wp": per_lane(wp0),
+                "dzdp": per_lane(dz0), "pmode": zeros(max(self.nsub, 1))}
+
+    def steady_initial_state(self, lane_values, runin: int = 4096,
+                             rounds: int = 12):
+        """Per-lane steady start (fused.py:2600-2754): every lane begins at
+        the steady state of its own constant inputs, computed on the host
+        by :func:`acme_tpu.runtime.steadystate_sweep`.  Also installs the
+        certified per-subsystem residual floors for ``_lane_tolerances``."""
+        from acme_tpu.runtime import steadystate_sweep
+        m, p = self.model, self.prep
+        lane_values = np.asarray(lane_values, float)
+        nu_l0 = len(self.lane_idx)
+        L = self._lanes(lane_values)
+        x_l = np.zeros((L, max(self.nx, 1)))
+        z_l = np.zeros((L, max(self.nn_total, 1)))
+        wp_l = np.zeros((L, max(self.np_total, 1)))
+        dz_l = np.zeros((L, max(self.dz_total, 1)))
+        floors_l = np.zeros((L, max(self.nsub, 1)))
+        u_lanes = np.broadcast_to(self.u_ss, (L, m.nu)).astype(float).copy()
+        if nu_l0 and lane_values.size:
+            u_lanes[:, list(self.lane_idx)] = lane_values[:, :nu_l0]
+        uu, inv = np.unique(u_lanes, axis=0, return_inverse=True)
+        inv = np.asarray(inv).reshape(-1)
+        if uu.shape[0] < u_lanes.shape[0]:
+            xs, zs, cv, fl = steadystate_sweep(m, uu, runin=runin,
+                                               rounds=rounds,
+                                               return_floors=True)
+            if not cv.all() and uu.shape[0] <= 64:
+                bad = np.nonzero(~cv)[0]
+                xs2, zs2, cv2, fl2 = steadystate_sweep(
+                    m, uu[bad], runin=max(runin, 65536), rounds=rounds,
+                    return_floors=True)
+                xs[bad], zs[bad] = xs2, zs2
+                cv[bad], fl[bad] = cv2, fl2
+            xs, zs, cv, fl = xs[inv], zs[inv], cv[inv], fl[inv]
+        else:
+            xs, zs, cv, fl = steadystate_sweep(m, u_lanes, runin=runin,
+                                               rounds=rounds,
+                                               return_floors=True)
+        conv = np.asarray(cv, bool)
+        floors_l[:, :fl.shape[1]] = fl
+        if self.nx:
+            x_l[:, :self.nx] = (xs - p["x_ss"]) / self.Tx
+        if self.nn_total:
+            z_l[:, :self.nn_total] = zs - p["z_ss"]
+        uc = u_lanes - self.u_ss
+        off = doff = zoff = 0
+        for kk in range(self.nsub):
+            npk, nnk = m.np(kk), m.nn(kk)
+            if self.np_total:
+                wp_l[:, off:off + npk] = (
+                    x_l[:, :self.nx] @ p["dq"][kk].T
+                    + uc @ np.asarray(m.eqs[kk], float).T
+                    + z_l[:, :self.nn_total]
+                    @ np.asarray(m.fqprevs[kk], float).T)
+            if nnk and npk:
+                p_phys = (np.asarray(m.dqs[kk], float) @ xs.T
+                          + np.asarray(m.eqs[kk], float) @ u_lanes.T
+                          + np.asarray(m.fqprevs[kk], float) @ zs.T)
+                fq = np.asarray(m.fqs[kk], float)
+                pexp = np.asarray(m.pexps[kk], float)
+                q = (np.asarray(m.q0s[kk], float)[:, None]
+                     + pexp @ p_phys + fq @ zs.T[zoff:zoff + nnk])
+                with np.errstate(all="ignore"):
+                    _, Jq = m.nl_funcs[kk](np, q)
+                    J = np.einsum("ijl,jk->lik", Jq, fq)
+                    Jp = np.einsum("ijl,jk->lik", Jq, pexp)
+                    d = -np.linalg.pinv(J) @ Jp
+                bad = ~np.isfinite(d).all(axis=(1, 2))
+                if bad.any():
+                    d[bad] = p["dzdp0"][kk]
+                steep = np.abs(d).max(axis=(1, 2)) > 1e3
+                d[steep] = 0.0
+                dz_l[:, doff:doff + nnk * npk] = d.reshape(L, -1)
+            off += npk
+            doff += nnk * npk
+            zoff += nnk
+        n_bad = int((~conv).sum())
+        floors_l[~conv] = 0.0
+        self._steady_floors = floors_l
+        if n_bad:
+            warnings.warn(f"steady_initial_state: {n_bad}/{L} lanes did "
+                          "not certify steady; they start COLD and power "
+                          "up dynamically.")
+        xlo = x_l - x_l.astype(np.float32).astype(np.float64)
+        zlo = z_l - z_l.astype(np.float32).astype(np.float64)
+        state = {"x": self._tensor(x_l.T), "xlo": self._tensor(xlo.T),
+                 "z": self._tensor(z_l.T), "zlo": self._tensor(zlo.T),
+                 "zw": self._tensor(z_l.T), "wp": self._tensor(wp_l.T),
+                 "dzdp": self._tensor(dz_l.T),
+                 "pmode": torch.zeros((max(self.nsub, 1), L),
+                                      dtype=torch.float32,
+                                      device=self.device)}
+        if n_bad:
+            base = self.initial_state(L)
+            ok = torch.as_tensor(conv, device=self.device)[None]
+            state = {k: torch.where(ok, v, base[k]) for k, v in state.items()}
+        return state
+
+    def _lanes(self, lane_values):
+        lane_values = np.asarray(lane_values)
+        if lane_values.ndim == 2 and lane_values.shape[0] > 0:
+            return lane_values.shape[0]
+        return 128
+
+    def _lane_tolerances(self, lane_values_centered, L):
+        """Per-lane loop tolerance/gate and acceptance gate
+        (fused.py:2756-2817): (tol (nsub, L), gates (3 nsub, L)) float32."""
+        nsub = max(self.nsub, 1)
+        m, p = self.model, self.prep
+        tol_l = np.full((nsub, L), max(self.tol, 1e-9), np.float32)
+        gate_l = np.full((3 * nsub, L), 32.0 * self.tol, np.float32)
+        gate_l[2 * nsub:] = max(self.tol, 1e-9)
+        lv = np.asarray(lane_values_centered, float)
+        for kk in range(self.nsub):
+            q = np.broadcast_to(p["q0"][kk][:, None],
+                                (len(p["q0"][kk]), L)).copy()
+            if self.lane_idx and lv.size:
+                eq_lane = np.asarray(m.eqs[kk], float)[:, list(self.lane_idx)]
+                q += np.asarray(m.pexps[kk], float) \
+                    @ (eq_lane @ lv[:, :len(self.lane_idx)].T)
+            floor_l = self._floor_measure(kk, q, comp=False)
+            floor_f = self._floor_measure(kk, q)
+            tol_l[kk] = np.maximum(self.tol, 8.0 * floor_l)
+            gate_l[kk] = np.maximum(96.0 * floor_l, 32.0 * self.tol)
+            gate_l[nsub + kk] = np.maximum(96.0 * floor_f, 32.0 * self.tol)
+            gate_l[2 * nsub + kk] = np.maximum(self.tol, 8.0 * floor_f)
+        fl = self._steady_floors
+        if fl is not None and fl.shape[0] == L and self.nsub:
+            flT = np.asarray(fl, np.float32).T
+            for kk in range(self.nsub):
+                tol_l[kk] = np.maximum(tol_l[kk], 2.0 * flT[kk])
+                gate_l[kk] = np.maximum(gate_l[kk], 4.0 * flT[kk])
+                gate_l[nsub + kk] = np.maximum(gate_l[nsub + kk],
+                                               4.0 * flT[kk])
+                gate_l[2 * nsub + kk] = np.maximum(gate_l[2 * nsub + kk],
+                                                   2.0 * flT[kk])
+        return tol_l, gate_l
+
+    # -- run ------------------------------------------------------------------
+    def prepare_inputs(self, u_time, lane_values):
+        """Centered float32 kernel inputs on the runner's device:
+        (u (T, nu_t), lanes (nu_l, L), tol (nsub, L), gates (3 nsub, L))."""
+        u_time = np.asarray(u_time, float) \
+            - self.u_ss[list(self.time_idx)][:, None]
+        lane_values = np.array(lane_values, float, copy=True)
+        nu_l = len(self.lane_idx)
+        if nu_l and (lane_values.ndim != 2 or lane_values.shape[1] != nu_l):
+            raise ValueError(
+                f"lane_values must be 2-D with {nu_l} columns, got shape "
+                f"{lane_values.shape}")
+        if nu_l:
+            lane_values[:, :nu_l] -= self.u_ss[list(self.lane_idx)]
+        lane_values = lane_values.astype(np.float32)
+        L = self._lanes(lane_values)
+        lv = lane_values.T if nu_l else np.zeros((1, L), np.float32)
+        tol_l, gate_l = self._lane_tolerances(lane_values, L)
+        u = u_time.T if len(self.time_idx) else \
+            np.zeros((u_time.shape[1], 1))
+        return (self._tensor(u), self._tensor(lv), self._tensor(tol_l),
+                self._tensor(gate_l))
+
+    def _check_outputs(self, y, info):
+        """Raise on non-finite output, warn on fails (fused.py:2868-2886):
+        one device-side reduction, two scalars to the host."""
+        finite = bool(torch.isfinite(y).all())
+        if not finite:
+            raise RuntimeError(
+                "fused run produced non-finite output; inspect "
+                "FusedInfo.fails for the offending lanes (reference "
+                "semantics: ACME.jl:692-694)")
+        nfail = int(info.fails.sum())
+        if nfail:
+            warnings.warn(
+                f"fused run: {nfail} subsystem solve(s) across all lanes "
+                "and samples missed the acceptance gate (solution kept, "
+                "output may be degraded on those lanes; see "
+                "FusedInfo.fails). Reference warn path: ACME.jl:688-691.")
+
+    def run(self, u_time, lane_values, state=None, check=True):
+        """u_time: (nu_t, T); lane_values: (L, nu_l).  Returns
+        (y (L, ny, T), state, FusedInfo), all tensors on the runner's
+        device.  ``state`` holds (n, L) tensors under the JAX package's
+        keys; None starts cold (or, with ``powerup="steady"``, at each
+        lane's own steady state)."""
+        if state is None and self.powerup_steady:
+            state = self.steady_initial_state(lane_values)
+        u, lv, tol_l, gate_l = self.prepare_inputs(u_time, lane_values)
+        L = lv.shape[1]
+        if state is None:
+            state = self.initial_state(L)
+        y, state, fails, iters, floored = fused_step(
+            self.plan, u, lv, tol_l, gate_l, state)
+        y = y.permute(2, 1, 0)[:, :self.ny, :]
+        info = FusedInfo(fails=fails, iters=iters.T, floored=floored)
+        if check:
+            self._check_outputs(y, info)
+        return y, state, info
+
+
+STATE_KEYS = ("x", "xlo", "z", "zlo", "zw", "wp", "dzdp", "pmode")
+
+
+# -- the prepared step (shared by the plain version and emit.py) --------------
+
+class _Plan:
+    """Everything the per-sample step reads, resolved once per runner:
+    float64 coefficients, their (a, ah, al, rem) splits, subsystem
+    offsets, and the solver configuration (``_build``, fused.py:852-1003)."""
+
+    def __init__(self, r: FusedRunner):
+        p, m = r.prep, r.model
+        tl = lambda a: np.asarray(a, float).tolist()
+        spl = lambda rows: [[_const_split(v) for v in row] for row in rows]
+        self.nx, self.ny, self.nsub = r.nx, r.ny, r.nsub
+        self.nn_total, self.np_total = r.nn_total, r.np_total
+        self.dz_total = r.dz_total
+        self.nu = m.nu
+        self.time_idx, self.lane_idx = r.time_idx, r.lane_idx
+        self.K, self.fast = r.K, r.fast_iters
+        self.P_pol, self.P_fix = r.polish_iters, r.polish_fixed
+        self.refine, self.vrefine = r.refine, r.verdict_refine
+        self.stall_strikes = float(r.stall_strikes)
+        self.plateau_strikes = float(r.plateau_strikes)
+        self.tol = r.tol
+        self.cuda_lib = None  # the kernel's library, set by build.load_kernel
+        self.a, self.b, self.c = tl(p["a"]), tl(p["b"]), tl(p["c"])
+        self.x0, self.y0 = tl(p["x0"]), tl(p["y0"])
+        self.dy, self.ey, self.fy = tl(p["dy"]), tl(p["ey"]), tl(p["fy"])
+        self.a_sp, self.b_sp, self.c_sp = (spl(self.a), spl(self.b),
+                                           spl(self.c))
+        self.dy_sp, self.ey_sp, self.fy_sp = (spl(self.dy), spl(self.ey),
+                                              spl(self.fy))
+        self.x0_sp = [_const_split(v) for v in self.x0]
+        self.y0_sp = [_const_split(v) for v in self.y0]
+        self.subs = []
+        zoff = poff = doff = 0
+        for k in range(r.nsub):
+            nn, np_, nq = m.nn(k), m.np(k), m.nq(k)
+            s = dict(
+                dq=tl(p["dq"][k]), eq=tl(p["eq"][k]),
+                fqprev=tl(p["fqprev"][k]), fq=tl(p["fq"][k]),
+                pexp=tl(p["pexp"][k]), q0=tl(p["q0"][k]),
+                nl=m.nl_funcs[k], nn=nn, np=np_, nq=nq,
+                off=zoff, poff=poff, doff=doff,
+                zclip=[r.step_clip] * nn,
+                df_slv=bool(r.sub_fragile[k]),
+                fold=bool(r.sub_fragile[k] and r.sub_cond_eq[k] > 1e4))
+            for key in ("dq", "eq", "fqprev", "fq", "pexp"):
+                s[key + "_sp"] = spl(s[key])
+            s["q0_sp"] = [_const_split(v) for v in s["q0"]]
+            s["p_rows"] = [any(_nz(cs) for row in (s["dq_sp"][i],
+                                                   s["eq_sp"][i],
+                                                   s["fqprev_sp"][i])
+                               for cs in row) for i in range(np_)]
+            self.subs.append(s)
+            zoff += nn
+            poff += np_
+            doff += nn * np_
+
+
+# -- dispatch -----------------------------------------------------------------
+
+def fused_step(plan, u, lv, tol, gate, state):
+    """Run the fused step over the whole time axis.
+
+    Inputs are float32 tensors on one device: u (T, nu_t), lv (nu_l, L),
+    tol (nsub, L), gate (3 nsub, L) and the state dict of (n, L) tensors.
+    Returns (y (T, ny, L), new state, fails (L,), iters (nsub, L),
+    floored (L,)).  CUDA tensors go through the kernel (or raise); the
+    plain torch version runs only for CPU tensors."""
+    dev = u.device
+    if dev.type == "cuda":
+        return _launch_kernel(plan, u, lv, tol, gate, state)
+    if dev.type == "cpu":
+        return plain_run(plan, u, lv, tol, gate, state)
+    raise ValueError(f"unsupported device {dev}")
+
+
+def _library_call(fn, plan, u, lv, tol, gate, state, *extra):
+    """Check the inputs, allocate the outputs and call the library entry
+    ``fn`` (the CUDA launch or its host twin) on them."""
+    L = lv.shape[1]
+    T = u.shape[0]
+    dev = u.device
+    dims = _state_dims(plan)
+    args = [u, lv, tol, gate] + [state[k] for k in STATE_KEYS]
+    shapes = [(T, max(len(plan.time_idx), 1)),
+              (max(len(plan.lane_idx), 1), L),
+              (max(plan.nsub, 1), L), (3 * max(plan.nsub, 1), L)] \
+        + [(dims[k], L) for k in STATE_KEYS]
+    for name, t, shp in zip(("u", "lanes", "tol", "gate") + STATE_KEYS,
+                            args, shapes):
+        if t.device != dev or t.dtype != torch.float32 \
+                or tuple(t.shape) != shp or not t.is_contiguous():
+            raise ValueError(
+                f"kernel input {name}: expected a contiguous float32 "
+                f"{shp} tensor on {dev}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    y = torch.empty((T, max(plan.ny, 1), L), dtype=torch.float32,
+                    device=dev)
+    out = {k: torch.empty((dims[k], L), dtype=torch.float32, device=dev)
+           for k in STATE_KEYS}
+    fails = torch.empty((L,), dtype=torch.int32, device=dev)
+    iters = torch.empty((max(plan.nsub, 1), L), dtype=torch.int32,
+                        device=dev)
+    floored = torch.empty((L,), dtype=torch.int32, device=dev)
+    ptrs = [t.data_ptr() for t in args] \
+        + [y.data_ptr()] + [out[k].data_ptr() for k in STATE_KEYS] \
+        + [fails.data_ptr(), iters.data_ptr(), floored.data_ptr()]
+    rc = fn(*[ctypes.c_void_p(p) for p in ptrs], ctypes.c_int(T),
+            ctypes.c_int(L), *extra)
+    if rc != 0:
+        raise RuntimeError(f"fused kernel failed: CUDA error {rc}")
+    return y, out, fails, iters, floored
+
+
+def _launch_kernel(plan, u, lv, tol, gate, state):
+    global KERNEL_LAUNCHES
+    from .build import load_kernel
+    lib = load_kernel(plan)
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device)
+        timed = LAUNCH_EVENTS is not None
+        if timed:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record(stream)
+        result = _library_call(lib.acme_fused_launch, plan, u, lv, tol, gate,
+                               state, ctypes.c_int(u.device.index),
+                               ctypes.c_void_p(stream.cuda_stream))
+        if timed:
+            ev[1].record(stream)
+            LAUNCH_EVENTS.append(tuple(ev))
+    KERNEL_LAUNCHES += 1
+    return result
+
+
+def host_step(lib, plan, u, lv, tol, gate, state):
+    """The kernel's own step compiled for the host (``build.load_host``),
+    lane by lane on CPU tensors: the CPU tests' view of ``csrc``."""
+    return _library_call(lib.acme_fused_host, plan, u, lv, tol, gate, state)
+
+
+def _state_dims(plan):
+    return {"x": max(plan.nx, 1), "xlo": max(plan.nx, 1),
+            "z": max(plan.nn_total, 1), "zlo": max(plan.nn_total, 1),
+            "zw": max(plan.nn_total, 1), "wp": max(plan.np_total, 1),
+            "dzdp": max(plan.dz_total, 1), "pmode": max(plan.nsub, 1)}
+
+
+# -- the plain version --------------------------------------------------------
+
+def _clip(x, lo, hi):
+    """jnp.clip: maximum then minimum, NaN-propagating, tensor bounds."""
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def _maxabs(vals):
+    out = torch.abs(vals[0])
+    for v in vals[1:]:
+        out = torch.maximum(out, torch.abs(v))
+    return out
+
+
+def _all_finite(vals):
+    out = torch.isfinite(vals[0])
+    for v in vals[1:]:
+        out = out & torch.isfinite(v)
+    return out
+
+
+def _sel(c, a, b):
+    """Per-lane select over lists (or nested lists) of tensors."""
+    if isinstance(a, list):
+        return [_sel(c, x, y) for x, y in zip(a, b)]
+    return torch.where(c, a, b)
+
+
+def _dot_df(coef_sp, vals, vlos=None, init=(0.0, 0.0)):
+    """Compensated dot: pre-split f64 coefficients times (hi, lo) values,
+    accumulated with error-free transforms (fused.py:965-985)."""
+    hi, lo = init
+    for idx, cs in enumerate(coef_sp):
+        if not _nz(cs):
+            continue
+        v = vals[idx]
+        if v is None:
+            continue
+        vh, vl = _split_rt(v)
+        pr, err = _prod_const(cs, v, vh, vl)
+        if vlos is not None and vlos[idx] is not None:
+            err = err + cs[0] * vlos[idx]
+        hi, e2 = _two_sum(hi, pr)
+        lo = lo + (err + e2)
+    return hi, lo
+
+
+def _dotv(coeffs, vecs, init=None):
+    """sum_j coeffs[j] * vecs[j], structural zeros skipped
+    (fused.py:987-997)."""
+    acc = init
+    for cf, v in zip(coeffs, vecs):
+        if cf == 0.0 or v is None:
+            continue
+        term = cf * v
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def _full(v, like):
+    return v if isinstance(v, torch.Tensor) else torch.full_like(like, v)
+
+
+class _SubSolver:
+    """One subsystem's per-sample solve for all lanes (the body of the JAX
+    kernel's subsystem loop, fused.py:1072-2266), with per-lane loops."""
+
+    def __init__(self, plan, s, ksub, lanes_like, tol, gate):
+        self.plan, self.s = plan, s
+        nsub = plan.nsub
+        self.ltol = tol[ksub]
+        self.lgate = gate[ksub]
+        self.gate_v = gate[nsub + ksub]
+        self.ptol = gate[2 * nsub + ksub]
+        self.like = lanes_like
+        self.dev = lanes_like.device
+
+    def on_device(self):
+        # the element composition allocates padding with xp.zeros, which
+        # takes torch's default device
+        if self.dev.type == "cpu":
+            return contextlib.nullcontext()
+        return torch.device(self.dev)
+
+    # eval_at (fused.py:1174-1320)
+    def eval_at(self, z, cmode, stats=True, pf=None, want_dfsys=False):
+        s = self.s
+        nn, nq = s["nn"], s["nq"]
+        like = self.like
+        q_lo = None
+        if pf is not None:
+            q = []
+            for ci in range(nq):
+                acc = _dotv(s["fq"][ci], z)
+                q.append(_full(pf[ci] if acc is None else acc + pf[ci], like))
+        elif cmode:
+            z_sp = [_split_rt(zz) for zz in z]
+            q, q_lo = [], []
+            for ci in range(nq):
+                hi, lo = self.pfull[ci], self.pfull_lo[ci]
+                for mi in range(nn):
+                    cs = s["fq_sp"][ci][mi]
+                    if not _nz(cs):
+                        continue
+                    pr, err = _prod_const(cs, z[mi], *z_sp[mi])
+                    hi, e2 = _two_sum(hi, pr)
+                    lo = lo + (err + e2)
+                q.append(hi)
+                q_lo.append(lo)
+        else:
+            q = []
+            for ci in range(nq):
+                acc = _dotv(s["fq"][ci], z)
+                q.append(self.pfull[ci] if acc is None
+                         else acc + self.pfull[ci])
+        qv = torch.stack(q)
+        Jq_df = res_df = None
+        if cmode == "df":
+            with self.on_device():
+                res_df, Jq_df = s["nl"](dfm, dfm.DF(qv, torch.stack(q_lo)))
+            res = res_df.hi + res_df.lo
+            Jq = Jq_df.hi + Jq_df.lo
+        else:
+            with self.on_device():
+                res, Jq = s["nl"](txp, qv)
+        if cmode and cmode != "df":
+            corr = []
+            for ai in range(nn):
+                acc = res[ai]
+                for ci in range(nq):
+                    acc = acc + Jq[ai, ci] * q_lo[ci]
+                corr.append(acc)
+            res = torch.stack(corr)
+        J = [[None] * nn for _ in range(nn)]
+        for ai in range(nn):
+            for bi in range(nn):
+                acc = None
+                for ci in range(nq):
+                    cf = s["fq"][ci][bi]
+                    if cf == 0.0:
+                        continue
+                    term = Jq[ai, ci] * cf
+                    acc = term if acc is None else acc + term
+                J[ai][bi] = acc if acc is not None else torch.zeros_like(like)
+        dfsys = None
+        if want_dfsys and cmode == "df":
+            Jd = [[None] * nn for _ in range(nn)]
+            for ai in range(nn):
+                for bi in range(nn):
+                    acc = None
+                    for ci in range(nq):
+                        cf = s["fq"][ci][bi]
+                        if cf == 0.0:
+                            continue
+                        term = Jq_df[ai, ci] * cf
+                        acc = term if acc is None else acc + term
+                    Jd[ai][bi] = acc if acc is not None \
+                        else dfm.DF(torch.zeros_like(like))
+            dfsys = ([res_df[ai] for ai in range(nn)], Jd)
+        res = [res[ai] for ai in range(nn)]
+        if not stats:
+            return res, J, Jq, None, None, dfsys
+        resmax = _maxabs(res)
+        scale = None
+        for ai in range(nn):
+            acc = None
+            for ci in range(nq):
+                t2 = torch.abs(Jq[ai, ci]) * torch.abs(qv[ci])
+                acc = t2 if acc is None else acc + t2
+            scale = acc if scale is None else torch.maximum(scale, acc)
+        return res, J, Jq, resmax, scale, dfsys
+
+    def clipdz(self, dz):
+        zc = self.s["zclip"]
+        return [torch.clamp(d, -zc[ai], zc[ai]) for ai, d in enumerate(dz)]
+
+    # gated Newton loop (fused.py:1373-1483)
+    def run_newton(self, zs0):
+        plan = self.plan
+        nn = self.s["nn"]
+        K = plan.K
+        z = list(zs0)
+        big = torch.full_like(self.like, 3e38)
+        zero = torch.zeros_like(self.like)
+        prev, strikes, strikes_hi = big, zero, zero
+        zlast, rlast, glast = list(zs0), big, self.lgate.clone()
+        itv = torch.full_like(self.like, float(K))
+        plat = zero
+        live = torch.ones_like(self.like, dtype=torch.bool)
+        it = 0
+        while it < K and bool(live.any()):
+            res, J, _, resmax, scale, _ = self.eval_at(z, False)
+            tol_eff = _clip(3.0e-7 * scale, self.ltol, 1e4 * self.ltol)
+            gate_eff = _clip(4.0e-6 * scale, self.lgate, 1e4 * self.lgate)
+            dz = solve_rows(J, [res], refine=0, pivot=True)[0]
+            stall_any = resmax >= 0.995 * prev
+            stalled = stall_any & (resmax < gate_eff)
+            strikes_n = torch.where(stalled, strikes + 1.0, zero)
+            strikes_hi_n = torch.where(stall_any & (resmax >= gate_eff),
+                                       strikes_hi + 1.0, zero)
+            struck = strikes_n >= plan.stall_strikes
+            plat_n = strikes_hi_n >= plan.plateau_strikes
+            done = (resmax < tol_eff) | struck | plat_n
+            bad = ~torch.isfinite(resmax) | ~_all_finite(dz)
+            move = ~(done | bad)
+            dz = self.clipdz(dz)
+            z_new = [torch.where(move, z[ai] - dz[ai], z[ai])
+                     for ai in range(nn)]
+            zlast = _sel(live, z, zlast)
+            rlast = torch.where(live, resmax, rlast)
+            glast = torch.where(live, gate_eff, glast)
+            plat = torch.where(live, plat_n.float(), plat)
+            itv = torch.where(live & done, float(it + 1), itv)
+            z = _sel(live, z_new, z)
+            prev = torch.where(live, resmax, prev)
+            strikes = torch.where(live, strikes_n, strikes)
+            strikes_hi = torch.where(live, strikes_hi_n, strikes_hi)
+            live = live & ~done
+            it += 1
+        return zlast, rlast, glast, itv, plat
+
+    # homotopy continuation rescue (fused.py:1485-1583)
+    def homotopy_rescue(self, zs0, r0, g0, it0):
+        s = self.s
+        nn, np_, nq = s["nn"], s["np"], s["nq"]
+        need = ~(r0 < g0) | ~torch.isfinite(r0)
+        zw, wp = self.zw, self.wp
+        K2, TRIPS = 16, 6 * 16
+        z_h = list(zs0)
+        z_good = [zw[s["off"] + i] for i in range(nn)]
+        zero = torch.zeros_like(self.like)
+        a_good, a_try, k_in = zero, torch.ones_like(self.like), zero
+        solved = torch.zeros_like(self.like, dtype=torch.bool)
+        trips = zero
+        while True:
+            act = need & ~solved & (trips < TRIPS)
+            if not bool(act.any()):
+                break
+            pmix = [wp[s["poff"] + i2] + a_try
+                    * (self.p[i2] - wp[s["poff"] + i2]) for i2 in range(np_)]
+            pf = []
+            for ci in range(nq):
+                acc = _dotv(s["pexp"][ci], pmix)
+                base = s["q0"][ci]
+                pf.append(base if acc is None else acc + base)
+            res, J, _, resmax, scale, _ = self.eval_at(z_h, False, pf=pf)
+            gate_eff = _clip(4.0e-6 * scale, self.lgate, 1e4 * self.lgate)
+            ok = resmax < gate_eff
+            dz = solve_rows(J, [res], refine=0, pivot=True)[0]
+            bad = ~torch.isfinite(resmax) | ~_all_finite(dz)
+            move = act & ~(ok | bad)
+            dz = self.clipdz(dz)
+            z_new = [torch.where(move, z_h[ai] - dz[ai], z_h[ai])
+                     for ai in range(nn)]
+            commit = act & ok
+            z_good = _sel(commit, z_h, z_good)
+            a_good = torch.where(commit, a_try, a_good)
+            solved = solved | (commit & (a_try >= 1.0))
+            k_next = torch.where(commit, 0.0, k_in + 1.0)
+            exh = act & (k_next >= K2) & ~ok
+            a_next = torch.where(commit, 1.0,
+                                 torch.where(exh, 0.5 * (a_good + a_try),
+                                             a_try))
+            z_new = _sel(exh, z_good, z_new)
+            k_next = torch.where(exh, 0.0, k_next)
+            z_h = z_new
+            a_try = torch.where(act, a_next, a_try)
+            k_in = torch.where(act, k_next, k_in)
+            trips = trips + act.float()
+        take = need & solved
+        return (_sel(take, z_h, zs0), torch.where(take, 0.5 * g0, r0), g0,
+                it0 + torch.where(need, trips, 0.0))
+
+    # double-float Newton rescue (fused.py:1585-1637)
+    def df_rescue(self, zs0, r0, g0, it0):
+        nn = self.s["nn"]
+        need = ~(r0 < g0) | ~torch.isfinite(r0)
+        K3 = 24
+        zs = list(zs0)
+        rm = torch.full_like(self.like, 3e38)
+        k = torch.zeros_like(self.like)
+        for _ in range(K3):
+            act = need & ~(rm < g0)
+            if not bool(act.any()):
+                break
+            res, J, _, resmax, _, _ = self.eval_at(zs, "df")
+            ok = resmax < g0
+            dz = solve_rows(J, [res], refine=self.plan.refine, pivot=True)[0]
+            bad = ~torch.isfinite(resmax) | ~_all_finite(dz)
+            move = act & ~(ok | bad)
+            dz = self.clipdz(dz)
+            zs = [torch.where(move, zs[ai] - dz[ai], zs[ai])
+                  for ai in range(nn)]
+            rm = torch.where(act, resmax, rm)
+            k = k + act.float()
+        take = need & ((rm < r0) | ~torch.isfinite(r0))
+        return (_sel(take, zs, zs0), torch.where(take, rm, r0), g0,
+                it0 + torch.where(need, k, 0.0))
+
+    def full_solve(self, zs):
+        """Gated Newton, then homotopy, then df Newton (fused.py:1642)."""
+        z, r, g, itv, _ = self.run_newton(zs)
+        if not bool((r < g).all()):
+            z, r, g, itv = self.homotopy_rescue(z, r, g, itv)
+        if not bool((r < g).all()):
+            z, r, g, itv = self.df_rescue(z, r, g, itv)
+        return z, r, g, itv
+
+    # polish_eval (fused.py:1652-1748)
+    def polish_eval(self, zs, mode=False, light=False, verdict=False):
+        s, plan = self.s, self.plan
+        nn, np_, nq = s["nn"], s["np"], s["nq"]
+        res_c, J, Jq, resmax_c, scale_c, dfsys = self.eval_at(
+            zs, mode, want_dfsys=(mode == "df" and s["df_slv"]))
+        lgate_eff = _clip(4.0e-6 * scale_c, self.lgate, 1e4 * self.lgate)
+        gate_eff_f = _clip(2.0e-6 * scale_c, self.gate_v, 1e4 * self.gate_v)
+        tol_pol = _clip(3.0e-7 * scale_c, self.ptol, 1e4 * self.ptol)
+        ltol_eff = _clip(3.0e-7 * scale_c, self.ltol, 1e4 * self.ltol)
+        rhs = [res_c]
+        if np_ and not light:
+            for bi in range(np_):
+                col = []
+                for ai in range(nn):
+                    acc = None
+                    for ci in range(nq):
+                        cf = s["pexp"][ci][bi]
+                        if cf == 0.0:
+                            continue
+                        term = Jq[ai, ci] * cf
+                        acc = term if acc is None else acc + term
+                    col.append(acc if acc is not None
+                               else torch.zeros_like(self.like))
+                rhs.append(col)
+        if dfsys is not None:
+            res_d, Jd = dfsys
+            rhs_d = [res_d] + [[dfm.DF(cv) for cv in cc] for cc in rhs[1:]]
+            Xd = solve_rows(Jd, rhs_d, refine=0, pivot=True, xp=dfm)
+            X = [[v.value() for v in row] for row in Xd]
+        else:
+            rf = 0 if light else (plan.vrefine if verdict else plan.refine)
+            X = solve_rows(J, rhs, refine=rf, pivot=True)
+        dz = X[0]
+        fin = torch.isfinite(resmax_c) & _all_finite(dz)
+        if np_ and not light:
+            cols = [[X[1 + bi][ai] for ai in range(nn)] for bi in range(np_)]
+        elif np_:
+            nan = torch.full_like(self.like, float("nan"))
+            cols = [[nan] * nn for _ in range(np_)]
+        else:
+            cols = []
+        return (dz, cols, resmax_c, lgate_eff, gate_eff_f, tol_pol,
+                ltol_eff, fin)
+
+    # polish_all with the comp_final verdict and the fold loop
+    # (fused.py:1750-2016)
+    def polish_all(self, zs):
+        s, plan = self.s, self.plan
+        nn, np_ = s["nn"], s["np"]
+        like = self.like
+        big = torch.full_like(like, 3e38)
+        zero = torch.zeros_like(like)
+        zc = s["zclip"]
+        st = dict(z=list(zs), cols=[[zero] * nn for _ in range(np_)],
+                  rm=big, rm1=big, tl1=self.ltol.clone(),
+                  lg=self.lgate.clone(), gf=self.gate_v.clone(),
+                  tp=self.ptol.clone(), pfrz=zero, pstall=zero, k=zero)
+        P_pol = plan.P_pol
+        n_fix = min(plan.P_fix, P_pol)
+        it = 0
+        while True:
+            if it < n_fix:
+                act_l = torch.ones_like(like, dtype=torch.bool)
+            else:
+                act_l = (st["k"] < P_pol) & ~((st["rm"] < st["tp"])
+                                              | (st["pfrz"] > 0.5))
+                if not bool(act_l.any()):
+                    break
+            (dz, cols, resmax_c, lgate_eff, gate_eff_f, tol_pol, ltol_eff,
+             fin) = self.polish_eval(st["z"], False, light=True)
+            not_contracting = fin & (resmax_c >= 0.7 * st["rm"])
+            pfrz = torch.maximum(st["pfrz"], not_contracting.float())
+            unclip = None
+            for ai in range(nn):
+                u_i = torch.abs(dz[ai]) < 0.9 * zc[ai]
+                unclip = u_i if unclip is None else unclip & u_i
+            pstall = torch.maximum(
+                st["pstall"], (not_contracting & unclip
+                               & (resmax_c >= tol_pol)
+                               & (resmax_c < 1e3 * gate_eff_f)).float())
+            first = st["k"] == 0
+            act = fin & (resmax_c >= tol_pol) & (first | (pfrz < 0.5))
+            dzc = self.clipdz(dz)
+            zp = [torch.where(act, st["z"][ai] - dzc[ai], st["z"][ai])
+                  for ai in range(nn)]
+            new = dict(z=zp, cols=cols, rm=resmax_c,
+                       rm1=torch.where(first, resmax_c, st["rm1"]),
+                       tl1=torch.where(first, ltol_eff, st["tl1"]),
+                       lg=lgate_eff, gf=gate_eff_f, tp=tol_pol, pfrz=pfrz,
+                       pstall=pstall, k=st["k"] + 1.0)
+            st = {key: _sel(act_l, new[key], st[key]) for key in st}
+            it += 1
+        # the verdict: one compensated (robust subsystems) or df (fragile
+        # subsystems) evaluation + guarded final step
+        vmode = "df" if s["df_slv"] else True
+        zlo0 = [zero] * nn
+        st["zlo"] = zlo0
+
+        def vd_pass(st):
+            (dzf, colsf, rm_df, lgf, gff, tpf, _tl, finf) = self.polish_eval(
+                st["z"], vmode, verdict=True)
+            out = dict(st)
+            out["tp"] = torch.where(finf, tpf, st["tp"])
+            vstep = finf if s["df_slv"] else finf & (rm_df >= tpf)
+            zp_n, zlo_n = [], []
+            for ai in range(nn):
+                dzc = torch.clamp(dzf[ai], -zc[ai], zc[ai])
+                hi2, lo2 = _two_sum(st["z"][ai], -dzc)
+                zp_n.append(torch.where(vstep, hi2, st["z"][ai]))
+                zlo_n.append(torch.where(vstep, lo2, zero))
+            out["z"], out["zlo"] = zp_n, zlo_n
+            out["rm"] = torch.where(finf, rm_df, st["rm"])
+            out["lg"] = torch.where(finf, lgf, st["lg"])
+            out["gf"] = torch.where(finf, gff, st["gf"])
+            out["cols"] = _sel(finf, colsf, st["cols"])
+            out["k"] = st["k"] + 1.0
+            return out, rm_df
+
+        st, rm_df0 = vd_pass(st)
+        if s["fold"]:
+            vtgt = float(np.float32(0.02 * plan.tol))
+            rm_prev = rm_df0
+            for _ in range(9):
+                go = (rm_prev >= vtgt) & torch.isfinite(rm_prev)
+                if not bool(go.any()):
+                    break
+                st2, rm_df = vd_pass(st)
+                act = go & (rm_df <= 0.9 * rm_prev)
+                rm_prev = torch.where(go, torch.where(act, rm_df, zero),
+                                      rm_prev)
+                st2["k"] = st["k"] + 1.0
+                st = {key: _sel(go, _sel(act, st2[key], st[key])
+                                if key != "k" else st2[key], st[key])
+                      for key in st}
+        return st
+
+    def solve(self, p, zw, wp, dzdp):
+        """The subsystem's per-sample solve given its p (fused.py:2018-2266).
+        Returns (z, zlo, fail, floor, pstall, itv, new zw/wp/dzdp parts)."""
+        s, plan = self.s, self.plan
+        nn, np_, nq = s["nn"], s["np"], s["nq"]
+        o, po, do = s["off"], s["poff"], s["doff"]
+        zc = s["zclip"]
+        self.p, self.zw, self.wp = p, zw, wp
+        # pfull = q0 + Pexp p as an unevaluated (hi, lo) pair
+        p_sp = [_split_rt(pi) for pi in p]
+        self.pfull, self.pfull_lo = [], []
+        for ci in range(nq):
+            cs0 = s["q0_sp"][ci]
+            hi = torch.full_like(self.like, cs0[0])
+            lo = torch.full_like(self.like, cs0[3])
+            for i in range(np_):
+                cs = s["pexp_sp"][ci][i]
+                if not _nz(cs):
+                    continue
+                pr, err = _prod_const(cs, p[i], *p_sp[i])
+                hi, e2 = _two_sum(hi, pr)
+                lo = lo + (err + e2)
+            self.pfull.append(hi)
+            self.pfull_lo.append(lo)
+        # extrapolated warm start, jump capped at 4 trust regions
+        if np_:
+            dp = [p[i] - wp[po + i] for i in range(np_)]
+            z0 = []
+            for i1 in range(nn):
+                acc = None
+                for i2 in range(np_):
+                    term = dzdp[do + i1 * np_ + i2] * dp[i2]
+                    acc = term if acc is None else acc + term
+                z0.append(zw[o + i1] + torch.clamp(acc, -4.0 * zc[i1],
+                                                   4.0 * zc[i1]))
+        else:
+            z0 = [zw[o + i1] for i1 in range(nn)]
+        # unguarded fast path with the already-converged guard
+        zs_cur = z0
+        for _ in range(plan.fast):
+            res_f, J_f, _, _, _, _ = self.eval_at(zs_cur, False, stats=False)
+            rmf = _maxabs(res_f)
+            dzf = solve_rows(J_f, [res_f], refine=0, pivot=True)[0]
+            okf = _all_finite(dzf) & (rmf >= self.ltol)
+            dzf = self.clipdz(dzf)
+            zs_cur = [torch.where(okf, zs_cur[ai] - dzf[ai], zs_cur[ai])
+                      for ai in range(nn)]
+        st = self.polish_all(zs_cur)
+        itv = float(plan.fast) + st["k"]
+        ok1 = (st["rm"] < st["gf"]) | ((st["rm1"] < st["tl1"])
+                                       & (st["pstall"] > 0.5))
+        need = ~ok1
+        if bool(need.any()):
+            # keep/redo under "merge": the robust path, kept only for the
+            # lanes that failed the keep test
+            zs4, _, _, itv4 = self.full_solve(zs_cur)
+            st2 = self.polish_all(zs4)
+            for key in ("z", "zlo", "cols", "rm", "gf", "pstall"):
+                st[key] = _sel(need, st2[key], st[key])
+            itv = itv + torch.where(need, itv4 + st2["k"], 0.0)
+        zp, zlo, cols = st["z"], st["zlo"], st["cols"]
+        resmax_c, gate_eff_f, pstall = st["rm"], st["gf"], st["pstall"]
+        # acceptance, floor certificate, plausibility (fused.py:2153-2266)
+        z_implaus = None
+        for i1 in range(nn):
+            bad_i = ~torch.isfinite(zp[i1]) | (torch.abs(zp[i1]) > 1e4)
+            z_implaus = bad_i if z_implaus is None else (z_implaus | bad_i)
+        conv = (resmax_c < gate_eff_f) | ((pstall > 0.5) & ~z_implaus)
+        fail_k = ~conv
+        implaus = z_implaus | ~torch.isfinite(resmax_c)
+        floor_k = conv & ~(resmax_c < gate_eff_f)
+        zsub = fail_k & implaus
+        z_out = [torch.where(zsub, zw[o + i1], zp[i1]) for i1 in range(nn)]
+        zlo_out = [torch.where(zsub, torch.zeros_like(zlo[i1]), zlo[i1])
+                   for i1 in range(nn)]
+        ok = ~implaus
+        zw_n = [torch.where(ok, zp[i1], zw[o + i1]) for i1 in range(nn)]
+        wp_n = [torch.where(ok, p[i2], wp[po + i2]) for i2 in range(np_)]
+        dz_n = [dzdp[do + i] for i in range(nn * np_)]
+        if np_:
+            okd = ok & conv
+            for bi in range(np_):
+                for ai in range(nn):
+                    okd = okd & (torch.abs(cols[bi][ai]) < 1e6)
+            for i1 in range(nn):
+                for i2 in range(np_):
+                    di = i1 * np_ + i2
+                    dz_n[di] = torch.where(okd, -cols[i2][i1], dz_n[di])
+        return (z_out, zlo_out, fail_k, floor_k, pstall, itv, zw_n, wp_n,
+                dz_n)
+
+
+def plain_run(plan, u, lv, tol, gate, state):
+    """The plain torch version of the kernel: same inputs and outputs as
+    :func:`fused_step`, vectorised over lanes, per-lane loop semantics."""
+    T = u.shape[0]
+    L = lv.shape[1]
+    nsub = plan.nsub
+    st = {k: state[k].clone() for k in STATE_KEYS}
+    x = [st["x"][i] for i in range(plan.nx)]
+    xlo = [st["xlo"][i] for i in range(plan.nx)]
+    z = [st["z"][i] for i in range(plan.nn_total)]
+    zlo = [st["zlo"][i] for i in range(plan.nn_total)]
+    zw = [st["zw"][i] for i in range(plan.nn_total)]
+    wp = [st["wp"][i] for i in range(plan.np_total)]
+    dzdp = [st["dzdp"][i] for i in range(plan.dz_total)]
+    pmode = [st["pmode"][i] for i in range(max(nsub, 1))]
+    like = lv[0]
+    ys = torch.empty((T, max(plan.ny, 1), L), dtype=torch.float32,
+                     device=u.device)
+    fails = torch.zeros(L, dtype=torch.int32, device=u.device)
+    floored = torch.zeros(L, dtype=torch.int32, device=u.device)
+    iters = torch.zeros((max(nsub, 1), L), dtype=torch.int32,
+                        device=u.device)
+    solvers = [_SubSolver(plan, s, k, like, tol, gate)
+               for k, s in enumerate(plan.subs)]
+    for t in range(T):
+        u_full = [None] * plan.nu
+        for jj, g in enumerate(plan.time_idx):
+            u_full[g] = u[t, jj].expand(L)
+        for jj, g in enumerate(plan.lane_idx):
+            u_full[g] = lv[jj]
+        z_all, z_lo_all = list(z), list(zlo)
+        any_fail = any_floor = None
+        for k, (s, sv) in enumerate(zip(plan.subs, solvers)):
+            p = []
+            for i in range(s["np"]):
+                if s["p_rows"][i]:
+                    hi, lo = _dot_df(s["dq_sp"][i], x, xlo)
+                    hi, lo = _dot_df(s["eq_sp"][i], u_full, init=(hi, lo))
+                    hi, lo = _dot_df(s["fqprev_sp"][i], z_all, z_lo_all,
+                                     init=(hi, lo))
+                    p.append(_full(hi + lo, like))
+                else:
+                    p.append(torch.zeros_like(like))
+            (zk, zlok, fail_k, floor_k, pstall, itv, zw_n, wp_n,
+             dz_n) = sv.solve(p, zw, wp, dzdp)
+            o, po, do = s["off"], s["poff"], s["doff"]
+            z_all[o:o + s["nn"]] = zk
+            z_lo_all[o:o + s["nn"]] = zlok
+            zw[o:o + s["nn"]] = zw_n
+            wp[po:po + s["np"]] = wp_n
+            dzdp[do:do + s["nn"] * s["np"]] = dz_n
+            pmode[k] = pstall
+            iters[k] += itv.to(torch.int32)
+            any_fail = fail_k if any_fail is None else any_fail | fail_k
+            any_floor = floor_k if any_floor is None else any_floor | floor_k
+        # EFT output row and state update (fused.py:2268-2342)
+        for oi in range(plan.ny):
+            cs = plan.y0_sp[oi]
+            hi, lo = _dot_df(plan.dy_sp[oi], x, xlo, init=(cs[0], cs[3]))
+            hi, lo = _dot_df(plan.ey_sp[oi], u_full, init=(hi, lo))
+            hi, lo = _dot_df(plan.fy_sp[oi], z_all, z_lo_all, init=(hi, lo))
+            ys[t, oi] = _full(hi + lo, like)
+        x_new = []
+        for xi in range(plan.nx):
+            cs = plan.x0_sp[xi]
+            hi, lo = _dot_df(plan.a_sp[xi], x, xlo, init=(cs[0], cs[3]))
+            hi, lo = _dot_df(plan.b_sp[xi], u_full, init=(hi, lo))
+            hi, lo = _dot_df(plan.c_sp[xi], z_all, z_lo_all, init=(hi, lo))
+            x_new.append(_two_sum(_full(hi, like), _full(lo, like)))
+        x = [h for h, _ in x_new]
+        xlo = [lo_ for _, lo_ in x_new]
+        z, zlo = z_all, z_lo_all
+        if any_fail is not None:
+            fails += any_fail.to(torch.int32)
+            floored += any_floor.to(torch.int32)
+    dims = _state_dims(plan)
+
+    def pack(key, rows):
+        if not rows:
+            return state[key].clone()
+        return torch.stack(rows).reshape(dims[key], L).contiguous()
+
+    out = {"x": pack("x", x), "xlo": pack("xlo", xlo), "z": pack("z", z),
+           "zlo": pack("zlo", zlo), "zw": pack("zw", zw),
+           "wp": pack("wp", wp), "dzdp": pack("dzdp", dzdp),
+           "pmode": pack("pmode", pmode if nsub else [])}
+    return ys, out, fails, iters, floored
