@@ -1,41 +1,47 @@
 """acme_tpu_torch: the acme_tpu runtimes on PyTorch and CUDA.
 
-The port of ``acme_tpu`` to an NVIDIA H100.  It shares the model compiler
-and the host runtime with ``acme_tpu`` (one ``DiscreteModel`` feeds both
-packages) and replaces the TPU's fused Pallas kernel with a hand-written
-CUDA kernel (``ops/csrc``), next to a plain torch version of the same step
-that runs on CPU tensors.
+The port of ``acme_tpu`` to an NVIDIA H100.  It carries its own copy of the
+model compiler and the host runtime (``circuit``, ``element``,
+``elements``, ``exact``, ``model``, ``models``, ``runtime``, ``solvers``,
+``kdtree``: numpy only, the same code and names as in ``acme_tpu``) and
+replaces the TPU's fused Pallas kernel with a hand-written CUDA kernel
+(``ops/csrc``), next to a plain torch version of the same step that runs
+on CPU tensors.
 
-    from acme_tpu.models import superover_model
+    from acme_tpu_torch.models import superover_model
     from acme_tpu_torch import FusedRunner
     fr = FusedRunner(superover_model(drive=None, tone=None, level=1.0,
                                      vb_source=True),
                      lane_input_idx=(1, 2), device="cuda")
     y, state, info = fr.run(u_time, lane_values)
 
-This package imports torch and never jax.
+This package imports torch and numpy, never jax and nothing of
+``acme_tpu``.
 """
 
 from __future__ import annotations
 
-import importlib.util
-import os
+from .circuit import Circuit, composite_element, parse_netlist
+from .element import Element, NLFunc
+from .elements import (bjt, capacitor, currentprobe, currentsource, diode,
+                       inductor, mosfet, opamp, potentiometer, resistor,
+                       transformer, voltageprobe, voltagesource)
+from .model import DiscreteModel
+from .ops.fused import FusedInfo, FusedRunner
+from .runtime import (ModelRunner, linearize, run, steadystate,
+                      steadystate_, steadystate_sweep)
+from .solvers import (CachingSolver, HomotopySolver, SimpleSolver,
+                      default_solver, homotopy_simple_solver)
 
-# ``acme_tpu/__init__.py`` imports jax to switch on its x64 mode unless
-# ACME_TPU_X64=0.  That flag gates nothing but JAX's x64 mode, so where jax
-# is not installed (the GPU machine) setting it is moot and lets the shared
-# compiler import.  Where jax is installed it is left alone: setting it here
-# would turn x64 off for any JAX code that later runs in this process.
-def _jax_installed():
-    try:
-        return importlib.util.find_spec("jax") is not None
-    except (ImportError, ValueError):   # an import hook that refuses jax
-        return False
-
-
-if not _jax_installed():
-    os.environ.setdefault("ACME_TPU_X64", "0")
-
-from .ops.fused import FusedInfo, FusedRunner  # noqa: E402
-
-__all__ = ["FusedRunner", "FusedInfo"]
+__all__ = [
+    "FusedRunner", "FusedInfo",
+    "Circuit", "parse_netlist", "composite_element",
+    "Element", "NLFunc", "DiscreteModel",
+    "resistor", "potentiometer", "capacitor", "inductor", "transformer",
+    "voltagesource", "currentsource", "voltageprobe", "currentprobe",
+    "diode", "bjt", "mosfet", "opamp",
+    "run", "ModelRunner", "steadystate", "steadystate_",
+    "steadystate_sweep", "linearize",
+    "SimpleSolver", "HomotopySolver", "CachingSolver",
+    "default_solver", "homotopy_simple_solver",
+]

@@ -112,6 +112,7 @@ def load_kernel(plan):
         if path not in _LOADED:
             _LOADED[path] = _bind(path, cuda=True)
         plan.cuda_lib = _LOADED[path]
+        plan.cuda_name = os.path.basename(path)
     return plan.cuda_lib
 
 

@@ -1,9 +1,15 @@
 // The per-lane sample step of the fused kernel: one subsystem solve per
 // model subsystem (in chain order), then the EFT output row and state
 // update.  A line-for-line per-lane rendering of _build.kernel in
-// acme_tpu/ops/fused.py (fused.py:1004-2371) for the production runner
-// configuration (fast_iters >= 1, comp_final verdict, df_solve="auto",
-// fast_verify="merge", extrapolated warm starts, df state).
+// acme_tpu/ops/fused.py (fused.py:1004-2371) for two runner
+// configurations: the production one (fast_iters >= 1, comp_final verdict,
+// df_solve="auto", fast_verify="merge", extrapolated warm starts, df state)
+// and the two-phase power-up's sibling (fast_iters = 0: the robust path
+// enters every sample; extrapolate="track": the start is zw; the "final"
+// verdict: a compensated polish loop and a df verdict for every
+// subsystem).  The header's constants (FAST_ITERS, EXTRAP_USE, POL_MODE,
+// VERDICT_DF, REL_TOL_POL) pick the configuration at compile time, so
+// each build holds only its own branches.
 //
 // Every loop here is per lane: where the TPU kernel loops until all lanes
 // of a group are done (jnp.any / jnp.all exits) and masks the finished
@@ -328,7 +334,7 @@ HD inline void polish_eval(const Ctx<S>& cx, const float (&z)[S::NN], int mode,
   }
   pe.lgate_eff = jclip(4.0e-6f * e.scale, cx.lgate, 1e4f * cx.lgate);
   pe.gate_eff_f = jclip(2.0e-6f * e.scale, cx.gate_v, 1e4f * cx.gate_v);
-  pe.tol_pol = jclip(3.0e-7f * e.scale, cx.ptol, 1e4f * cx.ptol);
+  pe.tol_pol = jclip(REL_TOL_POL * e.scale, cx.ptol, 1e4f * cx.ptol);
   pe.ltol_eff = jclip(3.0e-7f * e.scale, cx.ltol, 1e4f * cx.ltol);
   pe.resmax = e.resmax;
   const int rf = light ? 0 : (verdict ? VREFINE : REFINE);
@@ -363,7 +369,8 @@ struct PolishSt {
 template <class S>
 HD inline float vd_pass(const Ctx<S>& cx, PolishSt<S>& st) {
   PolishEval<S> pe;
-  polish_eval<S>(cx, st.z, S::DF_SLV ? DFM : COMP, false, true, pe);
+  polish_eval<S>(cx, st.z, (VERDICT_DF || S::DF_SLV) ? DFM : COMP, false,
+                 true, pe);
   if (pe.fin) st.tp = pe.tol_pol;
   bool vstep = S::DF_SLV ? pe.fin : (pe.fin && pe.resmax >= pe.tol_pol);
   for (int a = 0; a < S::NN; ++a) {
@@ -384,8 +391,9 @@ HD inline float vd_pass(const Ctx<S>& cx, PolishSt<S>& st) {
   return pe.resmax;
 }
 
-// plain polish loop with the unrolled prefix, the comp/df verdict and the
-// fold continuation (fused.py:1750-2016)
+// plain (comp_final) or compensated ("final") polish loop with the
+// unrolled prefix, the comp/df verdict and the fold continuation
+// (fused.py:1750-2016)
 template <class S>
 ACME_NOINLINE HD void polish_all(const Ctx<S>& cx, const float (&zs)[S::NN],
                                  PolishSt<S>& st) {
@@ -407,7 +415,7 @@ ACME_NOINLINE HD void polish_all(const Ctx<S>& cx, const float (&zs)[S::NN],
         !(st.k < (float)P_POL && !((st.rm < st.tp) || (st.pfrz > 0.5f))))
       break;
     PolishEval<S> pe;
-    polish_eval<S>(cx, st.z, PLAIN, true, false, pe);
+    polish_eval<S>(cx, st.z, POL_MODE, true, false, pe);
     bool nc = pe.fin && (pe.resmax >= 0.7f * st.rm);
     if (nc) st.pfrz = 1.0f;
     bool unclip = true;
@@ -463,10 +471,11 @@ HD inline void solve_sub(Lane& ln, const float* u, float* z_all,
   cx.ptol = ln.gate[2 * NSUB + S::IDX];
   S::p_of(ln.x, ln.xlo, u, z_all, z_lo_all, cx.p);
   S::pfull(cx.p, cx.pf, cx.pflo);
-  // extrapolated warm start, jump capped at 4 trust regions
+  // extrapolated warm start, jump capped at 4 trust regions (with
+  // extrapolate="track" the start is zw itself)
   float z0[NN];
   for (int i1 = 0; i1 < NN; ++i1) {
-    if (S::NP > 0) {
+    if constexpr (EXTRAP_USE && S::NP > 0) {
       float acc = 0.0f;
       for (int i2 = 0; i2 < S::NP; ++i2) {
         float term = ln.dzdp[S::DOFF + i1 * S::NP + i2] *
@@ -479,38 +488,47 @@ HD inline void solve_sub(Lane& ln, const float* u, float* z_all,
       z0[i1] = ln.zw[S::OFF + i1];
     }
   }
-  // unguarded fast path with the already-converged guard
-  float zs[NN];
-  for (int a = 0; a < NN; ++a) zs[a] = z0[a];
-  for (int f = 0; f < FAST_ITERS; ++f) {
-    Eval<S> e;
-    eval_plain<S>(cx.pf, zs, e, false);
-    float rmf = fabsf(e.res[0]);
-    for (int a = 1; a < NN; ++a) rmf = jmax(rmf, fabsf(e.res[a]));
-    float R[1][NN], X[1][NN];
-    for (int a = 0; a < NN; ++a) R[0][a] = e.res[a];
-    solve_rows<NN, 1, float>(e.J, R, X, 0, true);
-    bool okf = all_finite<S>(X[0]) && (rmf >= cx.ltol);
-    if (okf)
-      for (int a = 0; a < NN; ++a) zs[a] = zs[a] - clipz<S>(X[0][a], a);
-  }
   PolishSt<S> st;
-  polish_all<S>(cx, zs, st);
-  float itv = (float)FAST_ITERS + st.k;
-  bool ok1 = (st.rm < st.gf) || ((st.rm1 < st.tl1) && (st.pstall > 0.5f));
-  if (!ok1) {
-    // keep/redo under "merge": this lane failed the keep test
+  float itv;
+  if constexpr (FAST_ITERS == 0) {
+    // the robust path from the start, then the polish (fused.py:2147-2151)
     Solved<S> sv;
-    full_solve<S>(cx, zs, sv);
-    PolishSt<S> st2;
-    polish_all<S>(cx, sv.z, st2);
-    for (int a = 0; a < NN; ++a) st.z[a] = st2.z[a], st.zlo[a] = st2.zlo[a];
-    for (int b = 0; b < NP; ++b)
-      for (int a = 0; a < NN; ++a) st.cols[b][a] = st2.cols[b][a];
-    st.rm = st2.rm;
-    st.gf = st2.gf;
-    st.pstall = st2.pstall;
-    itv = itv + (sv.itv + st2.k);
+    full_solve<S>(cx, z0, sv);
+    polish_all<S>(cx, sv.z, st);
+    itv = sv.itv + st.k;
+  } else {
+    // unguarded fast path with the already-converged guard
+    float zs[NN];
+    for (int a = 0; a < NN; ++a) zs[a] = z0[a];
+    for (int f = 0; f < FAST_ITERS; ++f) {
+      Eval<S> e;
+      eval_plain<S>(cx.pf, zs, e, false);
+      float rmf = fabsf(e.res[0]);
+      for (int a = 1; a < NN; ++a) rmf = jmax(rmf, fabsf(e.res[a]));
+      float R[1][NN], X[1][NN];
+      for (int a = 0; a < NN; ++a) R[0][a] = e.res[a];
+      solve_rows<NN, 1, float>(e.J, R, X, 0, true);
+      bool okf = all_finite<S>(X[0]) && (rmf >= cx.ltol);
+      if (okf)
+        for (int a = 0; a < NN; ++a) zs[a] = zs[a] - clipz<S>(X[0][a], a);
+    }
+    polish_all<S>(cx, zs, st);
+    itv = (float)FAST_ITERS + st.k;
+    bool ok1 = (st.rm < st.gf) || ((st.rm1 < st.tl1) && (st.pstall > 0.5f));
+    if (!ok1) {
+      // keep/redo under "merge": this lane failed the keep test
+      Solved<S> sv;
+      full_solve<S>(cx, zs, sv);
+      PolishSt<S> st2;
+      polish_all<S>(cx, sv.z, st2);
+      for (int a = 0; a < NN; ++a) st.z[a] = st2.z[a], st.zlo[a] = st2.zlo[a];
+      for (int b = 0; b < NP; ++b)
+        for (int a = 0; a < NN; ++a) st.cols[b][a] = st2.cols[b][a];
+      st.rm = st2.rm;
+      st.gf = st2.gf;
+      st.pstall = st2.pstall;
+      itv = itv + (sv.itv + st2.k);
+    }
   }
   // acceptance, floor certificate, plausibility substitution
   bool z_implaus = false;

@@ -26,7 +26,7 @@ import numpy as np
 
 from .dfmath import _const
 
-__all__ = ["model_header", "write_header"]
+__all__ = ["model_header", "write_header", "op_counts"]
 
 
 def _f(v):
@@ -511,19 +511,29 @@ def model_header(plan):
     o.append(f"constexpr int NX = {plan.nx}, NY = {plan.ny}, "
              f"NNT = {plan.nn_total}, NPT = {plan.np_total}, "
              f"NDZ = {plan.dz_total}, NSUB = {plan.nsub}, NU = {nu}, "
-             f"NU_T = {len(plan.time_idx)}, NU_L = {len(plan.lane_idx)};")
+             f"NU_T = {len(plan.time_idx)}, "
+             f"NU_L = {len(plan.lane_idx) + len(plan.scale_idx)};")
     o.append(f"constexpr int K_NEWTON = {plan.K}, FAST_ITERS = {plan.fast}, "
              f"P_POL = {plan.P_pol}, P_FIX = {plan.P_fix}, "
              f"REFINE = {plan.refine}, VREFINE = {plan.vrefine};")
     o.append(f"constexpr float STALL_STRIKES = {_f(plan.stall_strikes)}, "
              f"PLATEAU_STRIKES = {_f(plan.plateau_strikes)}, "
              f"VTGT = {_f(0.02 * plan.tol)};")
+    # the step configuration: extrapolated start or zw; polish loop
+    # evaluation (0 plain, 1 compensated) and target; df verdict for every
+    # subsystem (df_polish="final") or only the fragile ones
+    o.append(f"constexpr bool EXTRAP_USE = {str(plan.extrap_use).lower()}, "
+             f"VERDICT_DF = {str(plan.df_final).lower()};")
+    o.append(f"constexpr int POL_MODE = {int(plan.df_final)};")
+    o.append(f"constexpr float REL_TOL_POL = {_f(plan.rel_tol_pol)};")
     o.append("HD inline void u_full(const float* ut, const float* lanes, "
              "float* u) {")
     for jj, gi in enumerate(plan.time_idx):
         o.append(f"  u[{gi}] = ut[{jj}];")
     for jj, gi in enumerate(plan.lane_idx):
         o.append(f"  u[{gi}] = lanes[{jj}];")
+    for jj, gi in enumerate(plan.scale_idx):
+        o.append(f"  u[{gi}] = u[{gi}] * lanes[{len(plan.lane_idx) + jj}];")
     o.append("}")
     for k, s in enumerate(plan.subs):
         o.append(_sub_struct(plan, k, s))
@@ -575,3 +585,46 @@ def write_header(plan, build_dir):
             f.write(text)
         os.replace(tmp, path)
     return path
+
+
+# -- operation counts (for the kernel's bound) --------------------------------
+
+EFT_TERM_OPS = 10     # one compensated dot term: product, its error, two_sum
+
+
+def _solve_ops(n, m):
+    """Float operations of the row/column-equilibrated elimination of an
+    n x n system with m right-hand sides (linsolve.cuh), pivot compares
+    not counted."""
+    if n <= 2:
+        return {1: 1 + m, 2: 3 + 6 * m}.get(n, 0)
+    return 4 * n * n + (2 * n ** 3) // 3 + 2 * n * n * m
+
+
+def op_counts(plan):
+    """Float operations of the fused step, counted from the code this module
+    emits: ``(per_sample, per_eval)`` with ``per_sample`` the work every
+    lane-sample does once (the EFT dots of p, pfull, the output row and the
+    state update) and ``per_eval[k]`` one plain evaluation of subsystem k
+    with its Newton step (q = pf + Fq z, the element physics, J = Jq Fq,
+    the residual statistics, the elimination).  A lower bound of the
+    kernel's work: the verdict's df arithmetic counts as f32."""
+    per_sample = 0
+    per_eval = []
+    for s in plan.subs:
+        nn, nq = s["nn"], s["nq"]
+        eft = sum(_nz(cs) for row in s["dq_sp"] + s["eq_sp"]
+                  + s["fqprev_sp"] + s["pexp_sp"] for cs in row)
+        per_sample += EFT_TERM_OPS * eft
+        g, res, Jq = record(s["nl"], nq)
+        outs = list(res) + [i for row in Jq for i in row]
+        nl_ops = sum(1 for i in _live(g, outs)
+                     if g.nodes[i][0] not in ("const", "in"))
+        nz_fq = sum(1 for row in s["fq"] for v in row if v != 0.0)
+        per_eval.append(2 * nz_fq + nl_ops + 2 * nz_fq * nn
+                        + 3 * nn * nq + _solve_ops(nn, 1))
+    for rows in ((plan.dy_sp, plan.ey_sp, plan.fy_sp),
+                 (plan.a_sp, plan.b_sp, plan.c_sp)):
+        per_sample += EFT_TERM_OPS * sum(
+            _nz(cs) for m in rows for row in m for cs in row)
+    return per_sample, per_eval

@@ -15,7 +15,10 @@ update -- with
     plain-f32 polish loop, a compensated or double-float ("df") verdict
     with a df elimination on structurally ill-conditioned subsystems,
     and, for lanes that fail the keep test, the gated Newton ->
-    homotopy -> df-Newton rescue ladder.
+    homotopy -> df-Newton rescue ladder;
+  * the two-phase power-up of a cold run: its first samples go through a
+    sibling runner whose step enters through that ladder every sample,
+    starts at the last solution and ends in a df verdict.
 
 Two implementations of that step share one preparation (``_Plan``):
 
@@ -34,7 +37,9 @@ counts, which here count each lane's own trips).
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import copy
 import ctypes
 import warnings
 from typing import NamedTuple, Sequence
@@ -47,40 +52,83 @@ from .. import xp as txp
 from .linsolve_tiny import solve_rows
 
 __all__ = ["FusedRunner", "FusedInfo", "fused_step", "plain_run",
-           "host_step", "KERNEL_LAUNCHES", "LAUNCH_EVENTS"]
+           "host_step", "LAUNCHES", "LAUNCH_EVENTS"]
 
-# launches of the CUDA kernel made by fused_step (and nowhere else)
-KERNEL_LAUNCHES = 0
+# launches of the CUDA kernel made by fused_step (and nowhere else), by
+# library (the file name of the build, one per model and configuration;
+# ``_Plan.kernel_name`` says which configuration)
+LAUNCHES = collections.Counter()
 # set to a list to time each launch: fused_step appends its (start, end)
 # CUDA events, recorded on the launch stream just around the kernel
 LAUNCH_EVENTS = None
 
-_LEVEL = "ROADMAP Queue 1: the level sweep"
-_CONFIG = "ROADMAP Queue 2: the other step configurations"
-_UNPORTED = {
-    "lane_scale_idx": _LEVEL,
-    "powerup": _LEVEL + " (two-phase power-up)",
-    "extrapolate": _LEVEL + " (extrapolate='track')",
-    "compensated": _CONFIG,
-    "df_state": _CONFIG,
-    "df_polish": _CONFIG,
-    "df_solve": _CONFIG,
-    "fast_verify": _CONFIG,
-    "fast_keep": _CONFIG,
-    "polish_only": _CONFIG,
-    "pivot": _CONFIG,
-    "verdict_jac": _CONFIG,
-    "fast_iters": _CONFIG,
-    "rel_tol": _CONFIG,
-    "model": "ROADMAP Queue 1: per-lane model tables (_Var)",
-    "mesh": "ROADMAP Queue 1: lanes split across GPUs",
+_STEP = "ROADMAP Queue 2: the other step configurations"
+# each knob: the values of it that the port runs, and where the rest are
+# queued
+_KNOBS = {
+    "extrapolate": ((True, "track"), _STEP),
+    "compensated": ((True,), _STEP),
+    "df_state": ((True,), _STEP),
+    "df_polish": (("comp_final", "final"), _STEP),
+    "df_solve": (("auto",), _STEP),
+    "fast_verify": (("merge",), _STEP),
+    "fast_keep": (("gate",), _STEP),
+    "polish_only": ((False,), _STEP),
+    "pivot": ((True,), _STEP),
+    "verdict_jac": (("df",), _STEP),
+    "rel_tol": (((None, None, None),), _STEP),
+    "model": ((), "ROADMAP Queue 1: per-lane model tables (_Var)"),
+    "mesh": ((None,), "ROADMAP Queue 1: lanes split across GPUs"),
 }
+# the conservative configuration of the two-phase power-up (fused.py:406-416)
+_POWERUP_SAFE = dict(fast_iters=0, extrapolate="track", polish_only=False,
+                     df_polish="final")
+# the integer power-up overrides and the runner attribute each sets
+# (fused.py:2831-2861); the step knobs of _KNOBS but df_solve, rel_tol,
+# model and mesh are overrides too
+_POWERUP_INTS = {"newton_iters": "K", "fast_iters": "fast_iters",
+                 "polish_iters": "polish_iters",
+                 "polish_fixed": "polish_fixed",
+                 "stall_strikes": "stall_strikes",
+                 "plateau_strikes": "plateau_strikes",
+                 "verdict_refine": "verdict_refine"}
 
 
-def _unported(knob, value):
-    raise NotImplementedError(
-        f"FusedRunner({knob}={value!r}) is not ported to acme_tpu_torch yet "
-        f"({_UNPORTED[knob]})")
+def _check_ported(knob, val):
+    ported, queue = _KNOBS[knob]
+    if not any(val is ok or (type(val) is type(ok) and val == ok)
+               for ok in ported):
+        raise NotImplementedError(
+            f"FusedRunner({knob}={val!r}) is not ported to acme_tpu_torch "
+            f"yet ({queue})")
+
+
+def _powerup_overrides(powerup):
+    """The sibling runner's settings for ``powerup`` ("safe" or a dict of
+    overrides), cast as the JAX package casts them (fused.py:2831-2864):
+    unknown keys raise ValueError, values the port does not run raise
+    NotImplementedError."""
+    out, unknown = {}, []
+    for key, v in dict(_POWERUP_SAFE if powerup == "safe"
+                       else powerup).items():
+        if key in _POWERUP_INTS:
+            out[_POWERUP_INTS[key]] = int(v)
+        elif key in _KNOBS and key not in ("df_solve", "rel_tol", "model",
+                                           "mesh"):
+            if key == "extrapolate":
+                v = "track" if v == "track" else bool(v)
+            elif key == "df_polish":
+                v = v if v in ("final", "plain_final", "comp_final") \
+                    else bool(v)
+            else:
+                v = type(_KNOBS[key][0][0])(v)
+            _check_ported(key, v)
+            out[key] = v
+        else:
+            unknown.append(key)
+    if unknown:
+        raise ValueError(f"unknown powerup override(s): {sorted(unknown)}")
+    return out
 
 
 class FusedInfo(NamedTuple):
@@ -146,7 +194,9 @@ class FusedRunner:
     -> ``(y (L, ny, T), state, FusedInfo)``.
 
     Inputs listed in ``lane_input_idx`` are per-lane constants (the sweep
-    axis); the rest come from the shared time series.  ``device`` holds
+    axis); the rest come from the shared time series, those listed in
+    ``lane_scale_idx`` multiplied by a per-lane scale (``lane_values``
+    holds the constants, then the scales).  ``device`` holds
     the state and outputs: a CUDA device runs the kernel, the CPU the
     plain version.  The defaults are the production configuration of the
     JAX package's bench (``fast_iters=1``, ``polish_fixed=2``,
@@ -167,36 +217,42 @@ class FusedRunner:
                  fast_iters: int = 1, fast_verify: str = "merge",
                  polish_only: bool = False, fast_keep: str = "gate",
                  stall_strikes: int = 2, plateau_strikes: int = 6,
-                 powerup=None, mesh=None):
+                 powerup=None, powerup_samples: int = 4096, mesh=None):
         if isinstance(model, (list, tuple)):
-            _unported("model", "[...]")
-        for knob, val, ok in (
-                ("lane_scale_idx", tuple(lane_scale_idx), ()),
-                ("extrapolate", extrapolate, True),
-                ("compensated", compensated, True),
-                ("df_state", df_state, True),
-                ("df_polish", df_polish, "comp_final"),
-                ("df_solve", df_solve, "auto"),
-                ("fast_verify", fast_verify, "merge"),
-                ("fast_keep", fast_keep, "gate"),
-                ("polish_only", polish_only, False),
-                ("pivot", pivot, True),
-                ("verdict_jac", verdict_jac, "df"),
-                ("mesh", mesh, None)):
-            if not (val is ok or (type(val) is type(ok) and val == ok)):
-                _unported(knob, val)
-        if powerup not in (None, "steady"):
-            _unported("powerup", powerup)
-        if int(fast_iters) < 1:
-            _unported("fast_iters", fast_iters)
-        if rel_tol is not None or rel_gate is not None \
-                or rel_tol_polish is not None:
-            _unported("rel_tol", (rel_tol, rel_gate, rel_tol_polish))
+            _check_ported("model", "[...]")
+        if extrapolate != "track":
+            extrapolate = bool(extrapolate)
+        for knob, val in (("extrapolate", extrapolate),
+                          ("compensated", compensated),
+                          ("df_state", df_state), ("df_polish", df_polish),
+                          ("df_solve", df_solve),
+                          ("fast_verify", fast_verify),
+                          ("fast_keep", fast_keep),
+                          ("polish_only", polish_only), ("pivot", pivot),
+                          ("verdict_jac", verdict_jac), ("mesh", mesh),
+                          ("rel_tol", (rel_tol, rel_gate, rel_tol_polish))):
+            _check_ported(knob, val)
         self.device = torch.device(device)
         self.model = model
         self.K = int(newton_iters)
+        # 0: no unguarded fast step, the robust path (gated Newton,
+        # homotopy, df Newton) enters every sample (fused.py:2147-2151)
         self.fast_iters = int(fast_iters)
+        # "track": start Newton at zw but keep (zw, wp, dzdp) up to date
+        # for a sibling that extrapolates (fused.py:430-440)
+        self.extrapolate = extrapolate
+        # "final": compensated polish loop + one full-df verdict
+        self.df_polish = df_polish
+        # two-phase power-up: the first powerup_samples of a cold run go
+        # through a sibling runner with the conservative configuration
+        # (fused.py:384-418); "steady" starts every lane at its own steady
+        # state instead
         self.powerup_steady = powerup == "steady"
+        self._pw_overrides = None
+        if powerup is not None and not self.powerup_steady:
+            self._pw_overrides = _powerup_overrides(powerup)
+        self.powerup_samples = int(powerup_samples)
+        self._pw_runner = None
         self.stall_strikes = int(stall_strikes)
         self.plateau_strikes = int(plateau_strikes)
         self.tol = float(tol)
@@ -207,6 +263,9 @@ class FusedRunner:
         self.verdict_refine = int(refine if verdict_refine is None
                                   else verdict_refine)
         self.lane_idx = tuple(int(i) for i in lane_input_idx)
+        # lane-scaled inputs: time rows multiplied by a per-lane constant
+        # (one audio stream fanned out at many input levels)
+        self.scale_idx = tuple(int(i) for i in lane_scale_idx)
         self.time_idx = tuple(i for i in range(model.nu)
                               if i not in self.lane_idx)
         self.nx = model.nx
@@ -317,7 +376,7 @@ class FusedRunner:
     def _center_of(self, m, center):
         if not (center and (m.nx or self.nn_total)):
             return np.zeros(m.nx), np.zeros(self.nn_total)
-        from acme_tpu.runtime import operating_point, steadystate
+        from ..runtime import operating_point, steadystate
         try:
             return steadystate(m, self.u_ss, return_z=True)
         except Exception:
@@ -422,9 +481,10 @@ class FusedRunner:
                              rounds: int = 12):
         """Per-lane steady start (fused.py:2600-2754): every lane begins at
         the steady state of its own constant inputs, computed on the host
-        by :func:`acme_tpu.runtime.steadystate_sweep`.  Also installs the
-        certified per-subsystem residual floors for ``_lane_tolerances``."""
-        from acme_tpu.runtime import steadystate_sweep
+        by :func:`acme_tpu_torch.runtime.steadystate_sweep`.  Also installs
+        the certified per-subsystem residual floors for
+        ``_lane_tolerances``."""
+        from ..runtime import steadystate_sweep
         m, p = self.model, self.prep
         lane_values = np.asarray(lane_values, float)
         nu_l0 = len(self.lane_idx)
@@ -558,17 +618,21 @@ class FusedRunner:
     # -- run ------------------------------------------------------------------
     def prepare_inputs(self, u_time, lane_values):
         """Centered float32 kernel inputs on the runner's device:
-        (u (T, nu_t), lanes (nu_l, L), tol (nsub, L), gates (3 nsub, L))."""
+        (u (T, nu_t), lanes (nu_l, L), tol (nsub, L), gates (3 nsub, L)).
+        ``lane_values`` holds the lane inputs' constants, then the scales
+        of the lane-scaled inputs (fused.py:2921-2932)."""
         u_time = np.asarray(u_time, float) \
             - self.u_ss[list(self.time_idx)][:, None]
         lane_values = np.array(lane_values, float, copy=True)
-        nu_l = len(self.lane_idx)
+        nu_l0 = len(self.lane_idx)
+        nu_l = nu_l0 + len(self.scale_idx)
         if nu_l and (lane_values.ndim != 2 or lane_values.shape[1] != nu_l):
             raise ValueError(
-                f"lane_values must be 2-D with {nu_l} columns, got shape "
+                f"lane_values must be 2-D with {nu_l} columns ({nu_l0} "
+                f"constants + {len(self.scale_idx)} scales), got shape "
                 f"{lane_values.shape}")
-        if nu_l:
-            lane_values[:, :nu_l] -= self.u_ss[list(self.lane_idx)]
+        if nu_l0:
+            lane_values[:, :nu_l0] -= self.u_ss[list(self.lane_idx)]
         lane_values = lane_values.astype(np.float32)
         L = self._lanes(lane_values)
         lv = lane_values.T if nu_l else np.zeros((1, L), np.float32)
@@ -577,6 +641,24 @@ class FusedRunner:
             np.zeros((u_time.shape[1], 1))
         return (self._tensor(u), self._tensor(lv), self._tensor(tol_l),
                 self._tensor(gate_l))
+
+    def _powerup_runner(self):
+        """The sibling runner with the power-up configuration
+        (fused.py:2819-2866): it shares the prepared coefficients and
+        centering with this runner, read-only, and has its own ``_Plan``
+        (so its own kernel build, ``fused_sweep_powerup``).  The step
+        knobs that the port runs at one value only are checked, not set."""
+        if self._pw_runner is None:
+            r = copy.copy(self)
+            r._pw_runner = None
+            r._pw_overrides = None
+            for attr, v in self._pw_overrides.items():
+                if hasattr(r, attr):
+                    setattr(r, attr, v)
+            r.plan = _Plan(r)
+            r.plan.kernel_name = "fused_sweep_powerup"
+            self._pw_runner = r
+        return self._pw_runner
 
     def _check_outputs(self, y, info):
         """Raise on non-finite output, warn on fails (fused.py:2868-2886):
@@ -599,10 +681,30 @@ class FusedRunner:
         """u_time: (nu_t, T); lane_values: (L, nu_l).  Returns
         (y (L, ny, T), state, FusedInfo), all tensors on the runner's
         device.  ``state`` holds (n, L) tensors under the JAX package's
-        keys; None starts cold (or, with ``powerup="steady"``, at each
-        lane's own steady state)."""
+        keys; None starts cold (with ``powerup="steady"`` at each lane's
+        own steady state; with ``powerup="safe"`` or a dict, the first
+        ``powerup_samples`` run through the power-up sibling, whose state
+        this runner takes over, fused.py:2898-2917)."""
         if state is None and self.powerup_steady:
             state = self.steady_initial_state(lane_values)
+        if state is None and self._pw_overrides is not None:
+            ut = np.asarray(u_time, float)
+            T0 = ut.shape[1]
+            W = min(self.powerup_samples, T0)
+            pr = self._powerup_runner()
+            if W >= T0:
+                return pr.run(ut, lane_values, state=None, check=check)
+            y1, state, info1 = pr.run(ut[:, :W], lane_values, state=None,
+                                      check=False)
+            y2, state, info2 = self.run(ut[:, W:], lane_values, state=state,
+                                        check=False)
+            y = torch.cat([y1, y2], dim=2)
+            info = FusedInfo(fails=info1.fails + info2.fails,
+                             iters=info1.iters + info2.iters,
+                             floored=info1.floored + info2.floored)
+            if check:
+                self._check_outputs(y, info)
+            return y, state, info
         u, lv, tol_l, gate_l = self.prepare_inputs(u_time, lane_values)
         L = lv.shape[1]
         if state is None:
@@ -635,13 +737,25 @@ class _Plan:
         self.dz_total = r.dz_total
         self.nu = m.nu
         self.time_idx, self.lane_idx = r.time_idx, r.lane_idx
-        self.K, self.fast = r.K, r.fast_iters
+        self.scale_idx = r.scale_idx
+        self.K, self.fast = r.K, max(0, r.fast_iters)
+        # the step configuration (fused.py:863-864, :1339-1371): start at
+        # the extrapolated point or at zw; with df_polish="final" the
+        # polish loop evaluates compensated (to 3e-8 of the term scale)
+        # and every subsystem's verdict in df physics, with "comp_final"
+        # plain (to 3e-7) and df only for the fragile subsystems
+        self.extrap_use = r.extrapolate is True
+        self.df_final = r.df_polish == "final"
+        self.rel_tol_pol = 3.0e-8 if self.df_final else 3.0e-7
+        # "fused_sweep_powerup" for the power-up sibling's plan
+        self.kernel_name = "fused_sweep"
         self.P_pol, self.P_fix = r.polish_iters, r.polish_fixed
         self.refine, self.vrefine = r.refine, r.verdict_refine
         self.stall_strikes = float(r.stall_strikes)
         self.plateau_strikes = float(r.plateau_strikes)
         self.tol = r.tol
-        self.cuda_lib = None  # the kernel's library, set by build.load_kernel
+        # the kernel's library and its file name, set by build.load_kernel
+        self.cuda_lib = self.cuda_name = None
         self.a, self.b, self.c = tl(p["a"]), tl(p["b"]), tl(p["c"])
         self.x0, self.y0 = tl(p["x0"]), tl(p["y0"])
         self.dy, self.ey, self.fy = tl(p["dy"]), tl(p["ey"]), tl(p["fy"])
@@ -704,7 +818,7 @@ def _library_call(fn, plan, u, lv, tol, gate, state, *extra):
     dims = _state_dims(plan)
     args = [u, lv, tol, gate] + [state[k] for k in STATE_KEYS]
     shapes = [(T, max(len(plan.time_idx), 1)),
-              (max(len(plan.lane_idx), 1), L),
+              (max(len(plan.lane_idx) + len(plan.scale_idx), 1), L),
               (max(plan.nsub, 1), L), (3 * max(plan.nsub, 1), L)] \
         + [(dims[k], L) for k in STATE_KEYS]
     for name, t, shp in zip(("u", "lanes", "tol", "gate") + STATE_KEYS,
@@ -734,7 +848,6 @@ def _library_call(fn, plan, u, lv, tol, gate, state, *extra):
 
 
 def _launch_kernel(plan, u, lv, tol, gate, state):
-    global KERNEL_LAUNCHES
     from .build import load_kernel
     lib = load_kernel(plan)
     with torch.cuda.device(u.device):
@@ -749,7 +862,7 @@ def _launch_kernel(plan, u, lv, tol, gate, state):
         if timed:
             ev[1].record(stream)
             LAUNCH_EVENTS.append(tuple(ev))
-    KERNEL_LAUNCHES += 1
+    LAUNCHES[plan.cuda_name] += 1
     return result
 
 
@@ -1082,7 +1195,8 @@ class _SubSolver:
             zs, mode, want_dfsys=(mode == "df" and s["df_slv"]))
         lgate_eff = _clip(4.0e-6 * scale_c, self.lgate, 1e4 * self.lgate)
         gate_eff_f = _clip(2.0e-6 * scale_c, self.gate_v, 1e4 * self.gate_v)
-        tol_pol = _clip(3.0e-7 * scale_c, self.ptol, 1e4 * self.ptol)
+        tol_pol = _clip(plan.rel_tol_pol * scale_c, self.ptol,
+                        1e4 * self.ptol)
         ltol_eff = _clip(3.0e-7 * scale_c, self.ltol, 1e4 * self.ltol)
         rhs = [res_c]
         if np_ and not light:
@@ -1119,7 +1233,7 @@ class _SubSolver:
         return (dz, cols, resmax_c, lgate_eff, gate_eff_f, tol_pol,
                 ltol_eff, fin)
 
-    # polish_all with the comp_final verdict and the fold loop
+    # polish_all with the comp_final or final verdict and the fold loop
     # (fused.py:1750-2016)
     def polish_all(self, zs):
         s, plan = self.s, self.plan
@@ -1144,7 +1258,7 @@ class _SubSolver:
                 if not bool(act_l.any()):
                     break
             (dz, cols, resmax_c, lgate_eff, gate_eff_f, tol_pol, ltol_eff,
-             fin) = self.polish_eval(st["z"], False, light=True)
+             fin) = self.polish_eval(st["z"], plan.df_final, light=True)
             not_contracting = fin & (resmax_c >= 0.7 * st["rm"])
             pfrz = torch.maximum(st["pfrz"], not_contracting.float())
             unclip = None
@@ -1167,9 +1281,9 @@ class _SubSolver:
                        pstall=pstall, k=st["k"] + 1.0)
             st = {key: _sel(act_l, new[key], st[key]) for key in st}
             it += 1
-        # the verdict: one compensated (robust subsystems) or df (fragile
-        # subsystems) evaluation + guarded final step
-        vmode = "df" if s["df_slv"] else True
+        # the verdict: one df evaluation (fragile subsystems, or all with
+        # df_polish="final") or compensated one + guarded final step
+        vmode = "df" if (s["df_slv"] or plan.df_final) else True
         zlo0 = [zero] * nn
         st["zlo"] = zlo0
 
@@ -1211,6 +1325,34 @@ class _SubSolver:
                       for key in st}
         return st
 
+    def fast_entry(self, z0):
+        """The unguarded fast path with the already-converged guard, its
+        polish and the keep/redo under "merge" (fused.py:2018-2146)."""
+        plan, nn = self.plan, self.s["nn"]
+        zs_cur = z0
+        for _ in range(plan.fast):
+            res_f, J_f, _, _, _, _ = self.eval_at(zs_cur, False, stats=False)
+            rmf = _maxabs(res_f)
+            dzf = solve_rows(J_f, [res_f], refine=0, pivot=True)[0]
+            okf = _all_finite(dzf) & (rmf >= self.ltol)
+            dzf = self.clipdz(dzf)
+            zs_cur = [torch.where(okf, zs_cur[ai] - dzf[ai], zs_cur[ai])
+                      for ai in range(nn)]
+        st = self.polish_all(zs_cur)
+        itv = float(plan.fast) + st["k"]
+        ok1 = (st["rm"] < st["gf"]) | ((st["rm1"] < st["tl1"])
+                                       & (st["pstall"] > 0.5))
+        need = ~ok1
+        if bool(need.any()):
+            # keep/redo under "merge": the robust path, kept only for the
+            # lanes that failed the keep test
+            zs4, _, _, itv4 = self.full_solve(zs_cur)
+            st2 = self.polish_all(zs4)
+            for key in ("z", "zlo", "cols", "rm", "gf", "pstall"):
+                st[key] = _sel(need, st2[key], st[key])
+            itv = itv + torch.where(need, itv4 + st2["k"], 0.0)
+        return st, itv
+
     def solve(self, p, zw, wp, dzdp):
         """The subsystem's per-sample solve given its p (fused.py:2018-2266).
         Returns (z, zlo, fail, floor, pstall, itv, new zw/wp/dzdp parts)."""
@@ -1235,8 +1377,9 @@ class _SubSolver:
                 lo = lo + (err + e2)
             self.pfull.append(hi)
             self.pfull_lo.append(lo)
-        # extrapolated warm start, jump capped at 4 trust regions
-        if np_:
+        # extrapolated warm start, jump capped at 4 trust regions (with
+        # extrapolate="track" the start is zw itself)
+        if np_ and plan.extrap_use:
             dp = [p[i] - wp[po + i] for i in range(np_)]
             z0 = []
             for i1 in range(nn):
@@ -1248,29 +1391,14 @@ class _SubSolver:
                                                    4.0 * zc[i1]))
         else:
             z0 = [zw[o + i1] for i1 in range(nn)]
-        # unguarded fast path with the already-converged guard
-        zs_cur = z0
-        for _ in range(plan.fast):
-            res_f, J_f, _, _, _, _ = self.eval_at(zs_cur, False, stats=False)
-            rmf = _maxabs(res_f)
-            dzf = solve_rows(J_f, [res_f], refine=0, pivot=True)[0]
-            okf = _all_finite(dzf) & (rmf >= self.ltol)
-            dzf = self.clipdz(dzf)
-            zs_cur = [torch.where(okf, zs_cur[ai] - dzf[ai], zs_cur[ai])
-                      for ai in range(nn)]
-        st = self.polish_all(zs_cur)
-        itv = float(plan.fast) + st["k"]
-        ok1 = (st["rm"] < st["gf"]) | ((st["rm1"] < st["tl1"])
-                                       & (st["pstall"] > 0.5))
-        need = ~ok1
-        if bool(need.any()):
-            # keep/redo under "merge": the robust path, kept only for the
-            # lanes that failed the keep test
-            zs4, _, _, itv4 = self.full_solve(zs_cur)
-            st2 = self.polish_all(zs4)
-            for key in ("z", "zlo", "cols", "rm", "gf", "pstall"):
-                st[key] = _sel(need, st2[key], st[key])
-            itv = itv + torch.where(need, itv4 + st2["k"], 0.0)
+        if plan.fast == 0:
+            # the robust path from the warm start, then the polish
+            # (fused.py:2147-2151)
+            zs4, _, _, itv4 = self.full_solve(z0)
+            st = self.polish_all(zs4)
+            itv = itv4 + st["k"]
+        else:
+            st, itv = self.fast_entry(z0)
         zp, zlo, cols = st["z"], st["zlo"], st["cols"]
         resmax_c, gate_eff_f, pstall = st["rm"], st["gf"], st["pstall"]
         # acceptance, floor certificate, plausibility (fused.py:2153-2266)
@@ -1333,6 +1461,8 @@ def plain_run(plan, u, lv, tol, gate, state):
             u_full[g] = u[t, jj].expand(L)
         for jj, g in enumerate(plan.lane_idx):
             u_full[g] = lv[jj]
+        for jj, g in enumerate(plan.scale_idx):
+            u_full[g] = u_full[g] * lv[len(plan.lane_idx) + jj]
         z_all, z_lo_all = list(z), list(zlo)
         any_fail = any_floor = None
         for k, (s, sv) in enumerate(zip(plan.subs, solvers)):

@@ -9,9 +9,11 @@ the kernel's per-lane step lane by lane.  Against the plain torch version:
   identical inputs: bit for bit (TwoProd's fused multiply-add error is
   exact, as is the plain version's Dekker split);
 * the whole step on the clipper, birdie (pot as a lane input) and the
-  Super Over from its committed seeds: y within -90 dB of each lane's peak
-  (the bound of the other comparisons; so far the two agree exactly), with
-  fails and floored equal.
+  Super Over from its committed seeds, and the level sweep's two
+  configurations (the power-up sibling from cold, the production runner
+  from the sibling's state) on the clipper and the level Super Over: y
+  within -90 dB of each lane's peak (the bound of the other comparisons;
+  so far the two agree exactly), with fails and floored equal.
 
 Skipped where g++ is absent.  A kernel logic fault shows here before any
 time on the card is spent.
@@ -24,9 +26,9 @@ import numpy as np
 import pytest
 import torch
 
-from acme_tpu import models as M
-from bench import _lane_grid
 from acme_tpu_torch import FusedRunner
+from acme_tpu_torch import models as M
+from acme_tpu_torch import sweeps as S
 from acme_tpu_torch.convert import load_steady_seed
 from acme_tpu_torch.ops import dfmath as tdf
 from acme_tpu_torch.ops import fused as F
@@ -120,6 +122,7 @@ def test_solves_bitwise(host_lib, n, m, use_df, refine):
 
 
 def _compare(lib, fr, u_time, lane_values, state):
+    """The host build against plain_run; returns the plain version's state."""
     u, lv, tol, gate = fr.prepare_inputs(u_time, lane_values)
     yh, sh, fh, ih, flh = F.host_step(lib, fr.plan, u, lv, tol, gate, state)
     yp, sp, fp, ip, flp = F.plain_run(fr.plan, u, lv, tol, gate, state)
@@ -132,6 +135,7 @@ def _compare(lib, fr, u_time, lane_values, state):
     for k in sp:
         scale = max(float(sp[k].abs().max()), 1e-30)
         assert float((sh[k] - sp[k]).abs().max()) <= 1e-4 * scale, k
+    return sp
 
 
 def _sine(amp, T):
@@ -161,7 +165,7 @@ def test_step_superover_from_seeds(host_lib):
     state = load_steady_seed(os.path.join(ROOT, ".steadyseed_cache.npz"),
                              "seed2_pots_chain_fs44100_L4096", fr,
                              lanes=lanes)
-    lv = _lane_grid("pots", 4096)[3][lanes]
+    lv = S.lane_grid("pots", 4096)[3][lanes]
     _compare(load_host(fr.plan, out), fr, _sine(0.2, 16), lv, state)
 
 
@@ -170,3 +174,24 @@ def test_linear_model_without_subsystems(host_lib):
     fr = FusedRunner(M.sallenkey_model())
     _compare(load_host(fr.plan, out), fr, _sine(0.5, 32), np.zeros((4, 0)),
              fr.initial_state(4))
+
+
+@pytest.mark.parametrize("model", ["clipper", "superover_level"])
+def test_step_level_powerup_then_main(host_lib, model):
+    """The power-up sibling's build (fast_iters=0, extrapolate="track",
+    df_polish="final") from cold with lane-scaled inputs, then the
+    production build from the state it left (the handoff)."""
+    _, out = host_lib
+    if model == "clipper":
+        fr = FusedRunner(M.diodeclipper_model(), lane_scale_idx=(0,),
+                         powerup="safe")
+        amp, L = 1.5, 64
+    else:
+        fr = FusedRunner(S.build_model("level", "chain"),
+                         lane_scale_idx=(0,), powerup="safe")
+        amp, L = 0.2, 32
+    pr = fr._powerup_runner()
+    lv = np.linspace(0.1, 2.0, L)[:, None]
+    state = _compare(load_host(pr.plan, out), pr, _sine(amp, 16), lv,
+                     pr.initial_state(L))
+    _compare(load_host(fr.plan, out), fr, _sine(amp, 16), lv, state)

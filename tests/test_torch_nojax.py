@@ -1,9 +1,11 @@
-"""The port imports torch and never jax.
+"""The port imports torch and never jax, nothing of acme_tpu, no bench.
 
-A subprocess whose meta-path finder refuses every ``jax`` import (as on
-the GPU machine, where jax is not installed) imports acme_tpu_torch,
-builds the diode clipper with the shared compiler, runs the plain path on
-128 lanes x 32 samples, and checks that no jax module was loaded.
+A subprocess whose meta-path finder refuses every ``jax``, ``acme_tpu`` and
+``bench`` import (on the GPU machine jax is not installed, and the port
+carries its own compiler) imports acme_tpu_torch and all its modules,
+builds the diode clipper with the port's compiler, runs the plain path on
+128 lanes x 32 samples with the level sweep's lane-scaled input and
+two-phase power-up, and checks that none of those modules was loaded.
 """
 
 import os
@@ -17,23 +19,34 @@ SCRIPT = textwrap.dedent("""
     import importlib.abc
     import sys
 
-    class RefuseJax(importlib.abc.MetaPathFinder):
+    REFUSED = ("jax", "jaxlib", "acme_tpu", "bench")
+
+    def refused(name):
+        return name.split(".")[0] in REFUSED
+
+    class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
-            if name == "jax" or name.startswith(("jax.", "jaxlib")):
+            if refused(name):
                 raise ModuleNotFoundError(f"refused: {name}")
             return None
 
-    sys.meta_path.insert(0, RefuseJax())
+    sys.meta_path.insert(0, Refuse())
+    import pkgutil
     import numpy as np
     import acme_tpu_torch
-    from acme_tpu.models import diodeclipper_model
-    fr = acme_tpu_torch.FusedRunner(diodeclipper_model())
+    for mod in pkgutil.walk_packages(acme_tpu_torch.__path__,
+                                     "acme_tpu_torch."):
+        __import__(mod.name)
+    from acme_tpu_torch.models import diodeclipper_model
+    fr = acme_tpu_torch.FusedRunner(diodeclipper_model(),
+                                    lane_scale_idx=(0,), powerup="safe",
+                                    powerup_samples=16)
     u = (1.5 * np.sin(2 * np.pi * 1000 / 44100 * np.arange(32)))[None, :]
-    y, state, info = fr.run(u, np.zeros((128, 0)))
+    y, state, info = fr.run(u, np.linspace(0.1, 2.0, 128)[:, None])
     assert tuple(y.shape) == (128, 1, 32)
     assert bool(np.isfinite(y.numpy()).all())
     assert int(info.fails.sum()) == 0
-    loaded = [m for m in sys.modules if m == "jax" or m.startswith("jax.")]
+    loaded = [m for m in sys.modules if refused(m)]
     assert not loaded, loaded
     print("OK")
 """)

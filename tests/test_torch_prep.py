@@ -9,45 +9,46 @@ the equilibrated condition numbers and the fragile-subsystem flags, the
 per-lane tolerances (with steady floors) and the initial state.
 """
 
-import copy
-
 import numpy as np
 import pytest
 
 from acme_tpu import models as M
 from acme_tpu.ops.fused import FusedRunner as JaxRunner
 from acme_tpu_torch import FusedRunner
+from acme_tpu_torch import models as TM
 from acme_tpu_torch.convert import state_to_jax
 
+# name -> (model function, keyword arguments, lane inputs, runner
+#          keywords, lanes)
+CASES = {
+    "clipper": ("diodeclipper_model", {}, (), {}, np.zeros((128, 0))),
+    "birdie": ("birdie_model", {}, (1,), {},
+               np.linspace(0.05, 0.95, 128)[:, None]),
+    "superover": ("superover_model",
+                  dict(drive=None, tone=None, level=1.0, vb_source=True),
+                  (1, 2), {},
+                  np.stack([np.repeat(np.linspace(0.05, 0.95, 16), 8),
+                            np.tile(np.linspace(0.05, 0.95, 8), 16)],
+                           axis=1)),
+    "superover_level": ("superover_model",
+                        dict(drive=1.0, tone=1.0, level=1.0,
+                             vb_source=True),
+                        (), dict(lane_scale_idx=(0,), powerup="safe"),
+                        np.linspace(0.1, 2.0, 128)[:, None]),
+}
 
-@pytest.fixture(scope="module")
-def superover():
-    return M.superover_model(drive=None, tone=None, level=1.0,
-                             vb_source=True)
 
-
-def _cases(superover):
-    return {
-        "clipper": (M.diodeclipper_model(), (), np.zeros((128, 0))),
-        "birdie": (M.birdie_model(), (1,),
-                   np.linspace(0.05, 0.95, 128)[:, None]),
-        "superover": (superover, (1, 2),
-                      np.stack([np.repeat(np.linspace(0.05, 0.95, 16), 8),
-                                np.tile(np.linspace(0.05, 0.95, 8), 16)],
-                               axis=1)),
-    }
-
-
-@pytest.mark.parametrize("case", ["clipper", "birdie", "superover"])
-def test_prepared_arrays_equal(case, superover):
-    model, lidx, lv = _cases(superover)[case]
-    # the centering steady state runs the model's stateful host solvers
-    # (CachingSolver), so each runner gets its own copy of the model
-    model2 = copy.deepcopy(model)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_prepared_arrays_equal(case):
+    fn, kw, lidx, rkw, lv = CASES[case]
+    # each package builds the model with its own compiler (the centering
+    # steady state also runs the model's stateful host solvers, so each
+    # runner needs its own model anyway)
+    model = getattr(M, fn)(**kw)
     jr = JaxRunner(model, lane_input_idx=lidx, interpret=True,
                    compile_cache=False, fast_iters=1, df_polish="comp_final",
-                   fast_verify="merge", polish_fixed=2)
-    tr = FusedRunner(model2, lane_input_idx=lidx)
+                   fast_verify="merge", polish_fixed=2, **rkw)
+    tr = FusedRunner(getattr(TM, fn)(**kw), lane_input_idx=lidx, **rkw)
     jp, tp = jr._prep[0], tr.prep
     np.testing.assert_array_equal(jr.Tx, tr.Tx)
     np.testing.assert_array_equal(jr.u_ss, tr.u_ss)
@@ -83,15 +84,65 @@ def test_prepared_arrays_equal(case, superover):
 
 
 def test_unported_configurations_raise():
-    m = M.diodeclipper_model()
-    for kw in (dict(lane_scale_idx=(0,)), dict(powerup="safe"),
-               dict(powerup=dict(fast_iters=0)), dict(extrapolate="track"),
-               dict(extrapolate=False), dict(compensated=False),
-               dict(df_polish="final"), dict(fast_verify="group"),
-               dict(polish_only=True), dict(pivot=False),
-               dict(verdict_jac="plain"), dict(mesh=object()),
-               dict(fast_iters=0)):
+    m = TM.diodeclipper_model()
+    for kw in (dict(extrapolate=False), dict(compensated=False),
+               dict(df_polish=True), dict(df_polish="plain_final"),
+               dict(fast_verify="group"), dict(polish_only=True),
+               dict(pivot=False), dict(verdict_jac="plain"),
+               dict(mesh=object()), dict(powerup=dict(compensated=False)),
+               dict(powerup=dict(extrapolate=False)),
+               dict(powerup=dict(df_polish="plain_final"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             FusedRunner(m, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FusedRunner([m, m])
+    with pytest.raises(ValueError, match="unknown powerup override"):
+        FusedRunner(m, powerup=dict(fast_iters=0, grid=4))
+
+
+def test_level_sweep_configurations_build():
+    """The knobs of the level sweep (lane-scaled inputs, the two-phase
+    power-up and its sibling's configuration) build, with the JAX
+    package's semantics: the sibling shares the preparation, has its own
+    plan, and takes the overrides."""
+    m = TM.diodeclipper_model()
+    for kw in (dict(lane_scale_idx=(0,)), dict(extrapolate="track"),
+               dict(df_polish="final"), dict(fast_iters=0),
+               dict(powerup="safe"), dict(powerup=dict(fast_iters=0)),
+               dict(powerup=dict(compensated=True, newton_iters=64))):
+        FusedRunner(m, **kw)
+    fr = FusedRunner(m, lane_scale_idx=(0,), powerup="safe",
+                     powerup_samples=64)
+    pr = fr._powerup_runner()
+    assert pr is fr._powerup_runner() and pr.prep is fr.prep
+    assert pr.plan is not fr.plan
+    assert (pr.fast_iters, pr.extrapolate, pr.df_polish) == \
+        (0, "track", "final")
+    assert (fr.fast_iters, fr.extrapolate, fr.df_polish) == \
+        (1, True, "comp_final")
+    assert (pr.plan.fast, pr.plan.extrap_use, pr.plan.df_final,
+            pr.plan.rel_tol_pol) == (0, False, True, 3.0e-8)
+    assert (fr.plan.fast, fr.plan.extrap_use, fr.plan.df_final,
+            fr.plan.rel_tol_pol) == (1, True, False, 3.0e-7)
+    assert pr.scale_idx == fr.scale_idx == (0,)
+    # the build is named by the sibling's role, not by its knobs
+    assert (fr.plan.kernel_name, pr.plan.kernel_name) == \
+        ("fused_sweep", "fused_sweep_powerup")
+    assert FusedRunner(m, fast_iters=0, extrapolate="track",
+                       df_polish="final").plan.kernel_name == "fused_sweep"
+    with pytest.raises(ValueError, match="1 columns"):
+        fr.prepare_inputs(np.zeros((1, 4)), np.zeros((128, 2)))
+
+
+def test_op_counts():
+    """The bound's operation counts (``emit.op_counts``): one count per
+    subsystem; more work for a bigger subsystem, and for the EFT dots of a
+    model with more states."""
+    from acme_tpu_torch.ops.emit import _solve_ops, op_counts
+    clip = op_counts(FusedRunner(TM.diodeclipper_model()).plan)
+    bird = op_counts(FusedRunner(TM.birdie_model(),
+                                 lane_input_idx=(1,)).plan)
+    assert len(clip[1]) == 1 and len(bird[1]) == 1
+    assert 0 < clip[0] < bird[0] and 0 < clip[1][0] < bird[1][0]
+    assert _solve_ops(1, 1) < _solve_ops(2, 1) < _solve_ops(3, 1) \
+        < _solve_ops(5, 1) < _solve_ops(5, 3)
