@@ -1,9 +1,10 @@
 """Moving runner state between the JAX package and the port.
 
-The model is built once (``DiscreteModel``) and shared, so the only thing
-that needs converting is the runner state: the JAX package keeps it as
+Both packages build the same ``DiscreteModel``, so what needs converting
+is what a runner carries per lane: its state, and for a multi-model runner
+its (hi, lo) coefficient tables.  The JAX package keeps them as
 (n, S, 128) arrays (lane l at [:, l // 128, l % 128]), the port as (n, L)
-tensors, under the same keys.
+tensors, the state under the same keys.
 """
 
 from __future__ import annotations
@@ -13,32 +14,46 @@ import torch
 
 from .ops.fused import STATE_KEYS
 
-__all__ = ["state_from_jax", "state_to_jax", "load_steady_seed"]
+__all__ = ["state_from_jax", "state_to_jax", "coef_from_jax", "coef_to_jax",
+           "load_steady_seed"]
+
+
+def _from_blocks(a, device):
+    a = np.array(a, np.float32)
+    return torch.as_tensor(np.ascontiguousarray(a.reshape(a.shape[0], -1)),
+                           device=device)
+
+
+def _to_blocks(t, lane_block):
+    a = t.detach().cpu().numpy().astype(np.float32)
+    n, L = a.shape
+    if L % lane_block:
+        raise ValueError(f"lanes ({L}) must be a multiple of {lane_block} "
+                         "for the JAX layout")
+    return np.ascontiguousarray(a.reshape(n, L // lane_block, lane_block))
 
 
 def state_from_jax(state, device="cpu"):
     """(n, S, 128) arrays (numpy or jax) -> (n, L) float32 tensors."""
-    out = {}
-    for k in STATE_KEYS:
-        a = np.array(state[k], np.float32)
-        out[k] = torch.as_tensor(
-            np.ascontiguousarray(a.reshape(a.shape[0], -1)), device=device)
-    return out
+    return {k: _from_blocks(state[k], device) for k in STATE_KEYS}
 
 
 def state_to_jax(state, lane_block: int = 128):
     """(n, L) tensors -> (n, S, 128) float32 numpy arrays (L a multiple of
     128), ready for ``jnp.asarray``."""
-    out = {}
-    for k in STATE_KEYS:
-        a = state[k].detach().cpu().numpy().astype(np.float32)
-        n, L = a.shape
-        if L % lane_block:
-            raise ValueError(f"lanes ({L}) must be a multiple of "
-                             f"{lane_block} for the JAX layout")
-        out[k] = np.ascontiguousarray(a.reshape(n, L // lane_block,
-                                                lane_block))
-    return out
+    return {k: _to_blocks(state[k], lane_block) for k in STATE_KEYS}
+
+
+def coef_from_jax(hi, lo, device="cpu"):
+    """The JAX runner's ``_coef_tables(S)`` pair, (nvar, S, 128) each, as
+    the port's (nvar, L) float32 tensors (``fused_step``'s ``coef``)."""
+    return _from_blocks(hi, device), _from_blocks(lo, device)
+
+
+def coef_to_jax(hi, lo, lane_block: int = 128):
+    """The port's ``_coef_tables(L)`` pair as (nvar, S, 128) float32 numpy
+    arrays."""
+    return _to_blocks(hi, lane_block), _to_blocks(lo, lane_block)
 
 
 def load_steady_seed(path, tag, runner, lanes=None):

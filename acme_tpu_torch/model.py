@@ -303,17 +303,20 @@ class DiscreteModel:
     (pass ``Fraction(1, fs)`` for exactness; floats are converted exactly).
     ``solver`` is a factory ``(nleq, p0, z0) -> solver``; the default is the
     reference's HomotopySolver{CachingSolver{SimpleSolver}} chain.
+    ``matrices`` takes a precomputed ``model_matrices(circ, t)`` (the exact
+    part, nearly all of a build's time; it pickles, so a worker process
+    can compute it).
     """
 
     def __init__(self, circ: Optional[Circuit] = None, t=None, *,
                  solver=default_solver, decompose_nonlinearity=True,
-                 _mats=None, _nl_funcs=None, _solvers=None):
+                 matrices=None, _mats=None, _nl_funcs=None, _solvers=None):
         if circ is None:
             # internal path: build directly from float matrices (linearize)
             self._init_from_float_mats(_mats, _nl_funcs or [], _solvers or [])
             return
 
-        mats = model_matrices(circ, t)
+        mats = model_matrices(circ, t) if matrices is None else matrices
         elems = list(circ.elements.values())
         nns = [e.nn for e in elems]
         nqs = [e.nq for e in elems]

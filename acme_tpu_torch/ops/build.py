@@ -21,7 +21,7 @@ import time
 from .emit import write_header
 
 __all__ = ["load_kernel", "load_host", "build_dir", "compile_library",
-           "NVCC_FLAGS", "HOST_FLAGS", "LAST_BUILD"]
+           "NVCC_FLAGS", "HOST_FLAGS", "LAST_BUILD", "STACK_BYTES"]
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = ("df.cuh", "linsolve.cuh", "step.cuh", "fused.cu")
@@ -30,6 +30,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 HOST_FLAGS = ["-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
               "-x", "c++"]
+
+# the per-thread stack ``csrc/fused.cu`` sets before its first launch: the
+# frames that ptxas reports for a build must fit
+STACK_BYTES = 16384
 
 # (seconds, compiler log) of the last compile this process ran, by library
 LAST_BUILD = {}
@@ -90,7 +94,7 @@ _PTR = ctypes.c_void_p
 
 def _bind(path, cuda):
     lib = ctypes.CDLL(path)
-    common = [_PTR] * 24 + [ctypes.c_int, ctypes.c_int]
+    common = [_PTR] * 26 + [ctypes.c_int, ctypes.c_int]
     if cuda:
         lib.acme_fused_launch.argtypes = common + [ctypes.c_int, _PTR]
         lib.acme_fused_launch.restype = ctypes.c_int

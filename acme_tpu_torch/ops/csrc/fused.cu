@@ -22,6 +22,12 @@
 //    instead of forcing the whole kernel to its worst-case register count.
 //  * Occupancy at 4096 lanes: 4096 threads in 128-thread blocks would
 //    occupy 32 of the 132 SMs, so blocks are 32 threads (128 blocks).
+//  * Per-lane models (the TPU kernel's _Var tables): the coefficients that
+//    differ between the models of a list arrive as two (NVAR, L) tables,
+//    hi and lo; a thread reads its NVAR pairs once, coalesced across the
+//    warp, and keeps them with its state for the whole run, so the tables
+//    cost 8 NVAR bytes of traffic per lane and launch.  Equal coefficients
+//    stay literals of the instruction stream, as on the TPU.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // --fmad=false -shared -Xcompiler -fPIC -include <model header> fused.cu
@@ -43,6 +49,9 @@ using namespace acme_model;
 
 struct Args {
   const float *u, *lanes, *tol, *gate;
+  // per-lane coefficient tables (hi, lo), each (max(NVAR, 1), L): lane l's
+  // entry i at [i * L + l], so a warp reads neighbouring addresses
+  const float *ch, *cl;
   const float *x, *xlo, *z, *zlo, *zw, *wp, *dzdp, *pmode;
   float* y;
   float *xo, *xloo, *zo, *zloo, *zwo, *wpo, *dzdpo, *pmodeo;
@@ -68,6 +77,7 @@ HD inline void run_lane(const Args& a, int l) {
     ln.iters[i] = 0;
   }
   for (int i = 0; i < 3 * cmax1<NSUB>::v; ++i) ln.gate[i] = a.gate[i * L + l];
+  for (int i = 0; i < NVAR; ++i) ln.cv[i] = a.ch[i * L + l], ln.cvl[i] = a.cl[i * L + l];
   ln.fails = 0;
   ln.floored = 0;
   float lv[cmax1<NU_L>::v];
@@ -111,7 +121,8 @@ __global__ void __launch_bounds__(BLOCK) acme_fused_kernel(Args a) {
 #endif
 
 Args make_args(const float* u, const float* lanes, const float* tol,
-               const float* gate, const float* x, const float* xlo,
+               const float* gate, const float* ch, const float* cl,
+               const float* x, const float* xlo,
                const float* z, const float* zlo, const float* zw,
                const float* wp, const float* dzdp, const float* pmode,
                float* y, float* xo, float* xloo, float* zo, float* zloo,
@@ -119,6 +130,7 @@ Args make_args(const float* u, const float* lanes, const float* tol,
                int* fails, int* iters, int* floored, int T, int L) {
   Args a;
   a.u = u, a.lanes = lanes, a.tol = tol, a.gate = gate;
+  a.ch = ch, a.cl = cl;
   a.x = x, a.xlo = xlo, a.z = z, a.zlo = zlo, a.zw = zw, a.wp = wp;
   a.dzdp = dzdp, a.pmode = pmode, a.y = y;
   a.xo = xo, a.xloo = xloo, a.zo = zo, a.zloo = zloo, a.zwo = zwo;
@@ -168,14 +180,15 @@ void solve_batch(int count, int use_df, int refine, int pivot,
 
 #define ACME_ARGS                                                            \
   const float *u, const float *lanes, const float *tol, const float *gate,   \
-      const float *x, const float *xlo, const float *z, const float *zlo,    \
-      const float *zw, const float *wp, const float *dzdp,                   \
-      const float *pmode, float *y, float *xo, float *xloo, float *zo,       \
-      float *zloo, float *zwo, float *wpo, float *dzdpo, float *pmodeo,      \
-      int *fails, int *iters, int *floored, int T, int L
+      const float *ch, const float *cl, const float *x, const float *xlo,    \
+      const float *z, const float *zlo, const float *zw, const float *wp,    \
+      const float *dzdp, const float *pmode, float *y, float *xo,            \
+      float *xloo, float *zo, float *zloo, float *zwo, float *wpo,           \
+      float *dzdpo, float *pmodeo, int *fails, int *iters, int *floored,     \
+      int T, int L
 #define ACME_PASS                                                            \
-  u, lanes, tol, gate, x, xlo, z, zlo, zw, wp, dzdp, pmode, y, xo, xloo, zo, \
-      zloo, zwo, wpo, dzdpo, pmodeo, fails, iters, floored, T, L
+  u, lanes, tol, gate, ch, cl, x, xlo, z, zlo, zw, wp, dzdp, pmode, y, xo,   \
+      xloo, zo, zloo, zwo, wpo, dzdpo, pmodeo, fails, iters, floored, T, L
 
 extern "C" {
 

@@ -19,7 +19,11 @@
 //
 // The model-specific parts come from the generated header (emit.py): the
 // subsystem traits Sub0, Sub1, ... with their coefficients, EFT dots and
-// element physics, plus the output row and the state update.
+// element physics, plus the output row and the state update.  Coefficients
+// that vary between the models of a multi-model runner (fused.py _Var) are
+// not literals there but reads of the lane's (hi, lo) table entries, which
+// the Lane carries (cv, cvl; NVAR of them) and every generated function
+// takes as its first two arguments.
 #pragma once
 
 #include "df.cuh"
@@ -42,6 +46,8 @@ struct Lane {
   float z[cmax1<NNT>::v], zlo[cmax1<NNT>::v], zw[cmax1<NNT>::v];
   float wp[cmax1<NPT>::v], dzdp[cmax1<NDZ>::v], pmode[cmax1<NSUB>::v];
   float tol[cmax1<NSUB>::v], gate[3 * cmax1<NSUB>::v];
+  // this lane's per-lane coefficients, loaded once before the time loop
+  float cv[cmax1<NVAR>::v], cvl[cmax1<NVAR>::v];
   int iters[cmax1<NSUB>::v];
   int fails, floored;
 };
@@ -82,11 +88,12 @@ HD inline void eval_stats(Eval<S>& e) {
 
 // eval_at in plain mode: q = pfull + Fq z (or pf + Fq z for the homotopy)
 template <class S>
-HD inline void eval_plain(const float* pf, const float (&z)[S::NN],
-                          Eval<S>& e, bool stats) {
-  S::q_plain(z, pf, e.q);
+HD inline void eval_plain(const Ctx<S>& cx, const float* pf,
+                          const float (&z)[S::NN], Eval<S>& e, bool stats) {
+  const float *cv = cx.ln->cv, *cvl = cx.ln->cvl;
+  S::q_plain(cv, cvl, z, pf, e.q);
   S::nl(e.q, e.res, e.Jq);
-  S::jac(e.Jq, &e.J[0][0]);
+  S::jac(cv, cvl, e.Jq, &e.J[0][0]);
   if (stats) eval_stats<S>(e);
 }
 
@@ -94,15 +101,16 @@ HD inline void eval_plain(const float* pf, const float (&z)[S::NN],
 template <class S>
 HD inline void eval_comp(const Ctx<S>& cx, const float (&z)[S::NN],
                          Eval<S>& e) {
+  const float *cv = cx.ln->cv, *cvl = cx.ln->cvl;
   float qlo[S::NQ];
-  S::q_comp(z, cx.pf, cx.pflo, e.q, qlo);
+  S::q_comp(cv, cvl, z, cx.pf, cx.pflo, e.q, qlo);
   S::nl(e.q, e.res, e.Jq);
   for (int a = 0; a < S::NN; ++a) {
     float acc = e.res[a];
     for (int c = 0; c < S::NQ; ++c) acc = acc + e.Jq[a * S::NQ + c] * qlo[c];
     e.res[a] = acc;
   }
-  S::jac(e.Jq, &e.J[0][0]);
+  S::jac(cv, cvl, e.Jq, &e.J[0][0]);
   eval_stats<S>(e);
 }
 
@@ -111,17 +119,18 @@ HD inline void eval_comp(const Ctx<S>& cx, const float (&z)[S::NN],
 template <class S>
 HD inline void eval_df(const Ctx<S>& cx, const float (&z)[S::NN], Eval<S>& e,
                        df* res_df, df (*Jd)[S::NN]) {
+  const float *cv = cx.ln->cv, *cvl = cx.ln->cvl;
   float qlo[S::NQ];
-  S::q_comp(z, cx.pf, cx.pflo, e.q, qlo);
+  S::q_comp(cv, cvl, z, cx.pf, cx.pflo, e.q, qlo);
   df qd[S::NQ], rd[S::NN], Jqd[S::NN * S::NQ];
   for (int c = 0; c < S::NQ; ++c) qd[c] = df(e.q[c], qlo[c]);
   S::nl_df(qd, rd, Jqd);
   for (int a = 0; a < S::NN; ++a) e.res[a] = rd[a].hi + rd[a].lo;
   for (int i = 0; i < S::NN * S::NQ; ++i) e.Jq[i] = Jqd[i].hi + Jqd[i].lo;
-  S::jac(e.Jq, &e.J[0][0]);
+  S::jac(cv, cvl, e.Jq, &e.J[0][0]);
   if (Jd != nullptr) {
     for (int a = 0; a < S::NN; ++a) res_df[a] = rd[a];
-    S::jac_df(Jqd, &Jd[0][0]);
+    S::jac_df(cv, cvl, Jqd, &Jd[0][0]);
   }
   eval_stats<S>(e);
 }
@@ -158,7 +167,7 @@ HD inline void run_newton(const Ctx<S>& cx, const float (&zs)[S::NN],
   out.itv = (float)K_NEWTON;
   for (int it = 0; it < K_NEWTON; ++it) {
     Eval<S> e;
-    eval_plain<S>(cx.pf, z, e, true);
+    eval_plain<S>(cx, cx.pf, z, e, true);
     float tol_eff = jclip(3.0e-7f * e.scale, cx.ltol, 1e4f * cx.ltol);
     float gate_eff = jclip(4.0e-6f * e.scale, cx.lgate, 1e4f * cx.lgate);
     float R[1][S::NN], X[1][S::NN];
@@ -204,9 +213,9 @@ HD inline void homotopy_rescue(const Ctx<S>& cx, Solved<S>& st) {
     float pmix[Ctx<S>::NP], pf[S::NQ];
     for (int i = 0; i < S::NP; ++i)
       pmix[i] = ln.wp[S::POFF + i] + a_try * (cx.p[i] - ln.wp[S::POFF + i]);
-    S::pf_mix(pmix, pf);
+    S::pf_mix(ln.cv, ln.cvl, pmix, pf);
     Eval<S> e;
-    eval_plain<S>(pf, z_h, e, true);
+    eval_plain<S>(cx, pf, z_h, e, true);
     float gate_eff = jclip(4.0e-6f * e.scale, cx.lgate, 1e4f * cx.lgate);
     bool ok = e.resmax < gate_eff;
     float R[1][S::NN], X[1][S::NN];
@@ -330,7 +339,7 @@ HD inline void polish_eval(const Ctx<S>& cx, const float (&z)[S::NN], int mode,
   } else if (mode == COMP) {
     eval_comp<S>(cx, z, e);
   } else {
-    eval_plain<S>(cx.pf, z, e, true);
+    eval_plain<S>(cx, cx.pf, z, e, true);
   }
   pe.lgate_eff = jclip(4.0e-6f * e.scale, cx.lgate, 1e4f * cx.lgate);
   pe.gate_eff_f = jclip(2.0e-6f * e.scale, cx.gate_v, 1e4f * cx.gate_v);
@@ -341,7 +350,7 @@ HD inline void polish_eval(const Ctx<S>& cx, const float (&z)[S::NN], int mode,
   const df(*Jdp)[S::NN] = dfsys ? Jd : nullptr;
   if (S::NP > 0 && !light) {
     float jp[NP * S::NN], X[1 + NP][S::NN];
-    S::jp(e.Jq, jp);
+    S::jp(cx.ln->cv, cx.ln->cvl, e.Jq, jp);
     polish_solve<S, 1 + NP>(e, res_df, Jdp, jp, rf, X);
     for (int a = 0; a < S::NN; ++a) pe.dz[a] = X[0][a];
     for (int b = 0; b < NP; ++b)
@@ -469,8 +478,8 @@ HD inline void solve_sub(Lane& ln, const float* u, float* z_all,
   cx.lgate = ln.gate[S::IDX];
   cx.gate_v = ln.gate[NSUB + S::IDX];
   cx.ptol = ln.gate[2 * NSUB + S::IDX];
-  S::p_of(ln.x, ln.xlo, u, z_all, z_lo_all, cx.p);
-  S::pfull(cx.p, cx.pf, cx.pflo);
+  S::p_of(ln.cv, ln.cvl, ln.x, ln.xlo, u, z_all, z_lo_all, cx.p);
+  S::pfull(ln.cv, ln.cvl, cx.p, cx.pf, cx.pflo);
   // extrapolated warm start, jump capped at 4 trust regions (with
   // extrapolate="track" the start is zw itself)
   float z0[NN];
@@ -502,7 +511,7 @@ HD inline void solve_sub(Lane& ln, const float* u, float* z_all,
     for (int a = 0; a < NN; ++a) zs[a] = z0[a];
     for (int f = 0; f < FAST_ITERS; ++f) {
       Eval<S> e;
-      eval_plain<S>(cx.pf, zs, e, false);
+      eval_plain<S>(cx, cx.pf, zs, e, false);
       float rmf = fabsf(e.res[0]);
       for (int a = 1; a < NN; ++a) rmf = jmax(rmf, fabsf(e.res[a]));
       float R[1][NN], X[1][NN];
@@ -576,9 +585,9 @@ HD inline void sample(Lane& ln, const float* u_t, const float* lane_vals,
 #define ACME_SOLVE(S) solve_sub<S>(ln, u, z_all, z_lo_all, any_fail, any_floor);
   ACME_FOR_EACH_SUB(ACME_SOLVE)
 #undef ACME_SOLVE
-  output_row(ln.x, ln.xlo, u, z_all, z_lo_all, y);
+  output_row(ln.cv, ln.cvl, ln.x, ln.xlo, u, z_all, z_lo_all, y);
   float xn[cmax1<NX>::v], xnlo[cmax1<NX>::v];
-  state_update(ln.x, ln.xlo, u, z_all, z_lo_all, xn, xnlo);
+  state_update(ln.cv, ln.cvl, ln.x, ln.xlo, u, z_all, z_lo_all, xn, xnlo);
   for (int i = 0; i < NX; ++i) ln.x[i] = xn[i], ln.xlo[i] = xnlo[i];
   for (int i = 0; i < NNT; ++i) ln.z[i] = z_all[i], ln.zlo[i] = z_lo_all[i];
   if (NSUB > 0) {

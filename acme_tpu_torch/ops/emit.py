@@ -8,6 +8,11 @@ its instruction stream (``FusedRunner._build``, fused.py:852-1003):
   dots, (a, rem) splits of the float64 values for the EFT dots, (hi, lo)
   df constants for the df Jacobian -- structural zeros skipped exactly
   where ``_build`` skips them, and the terms summed in the same order;
+  a coefficient that varies between the models of a multi-model runner
+  (``fused._Var``) is instead a read of the lane's entry of the (hi, lo)
+  coefficient tables (``cv[i]``, ``cvl[i]``), whose values are kernel
+  arguments: one build serves every list of models with the same pattern
+  of varying entries;
 * per subsystem, the element physics (residual and Jacobian) as
   ``__host__ __device__`` functions in float32 and in df, emitted by
   running the element's own ``nl(xp, q)`` through a *recording* ``xp``.
@@ -25,6 +30,7 @@ import os
 import numpy as np
 
 from .dfmath import _const
+from .fused import _Var, _nz
 
 __all__ = ["model_header", "write_header", "op_counts"]
 
@@ -356,8 +362,34 @@ def _emit_fn(name, g, res, Jq, nq, mode):
 
 # -- EFT dots and plain dots ---------------------------------------------------
 
-def _nz(cs):
-    return cs[0] != 0.0 or cs[3] != 0.0
+# the parameters through which the generated functions read the lane's
+# per-lane coefficients (hi and lo rows of the tables)
+CV = "const float* cv, const float* cvl"
+
+
+def _czero(cf):
+    """Structural zero: only a constant can be skipped (fused.py czero)."""
+    return not isinstance(cf, _Var) and cf == 0.0
+
+
+def _cval(cf):
+    """A coefficient in a float32 expression: its literal, or the lane's
+    table entry (fused.py cval)."""
+    return f"cv[{cf.i}]" if isinstance(cf, _Var) else _f(cf)
+
+
+def _cval_df(cf):
+    """A coefficient as a df operand: the (hi, lo) constant, or the lane's
+    float32 table entry with a zero lo (dfmath coerces a tensor so)."""
+    return f"df(cv[{cf.i}])" if isinstance(cf, _Var) else _df(cf)
+
+
+def _hi_lo(cs):
+    """The (hi, lo) initializer of an EFT accumulation (fused.py
+    coef_hi_lo)."""
+    if isinstance(cs, _Var):
+        return f"cv[{cs.i}]", f"cvl[{cs.i}]"
+    return _f(cs[0]), _f(cs[3])
 
 
 def _eft_terms(coef_sp, vals, vlos):
@@ -366,11 +398,13 @@ def _eft_terms(coef_sp, vals, vlos):
     for idx, cs in enumerate(coef_sp):
         if not _nz(cs) or vals[idx] is None:
             continue
-        has_rem = cs[3] != 0.0
+        # a per-lane coefficient always adds its lo * v (fused.py prod_coef)
+        has_rem = isinstance(cs, _Var) or cs[3] != 0.0
+        a, rem = _hi_lo(cs)
         vlo = vlos[idx] if vlos is not None else None
         out.append(
             f"eft_acc<{str(has_rem).lower()}, {str(vlo is not None).lower()}>"
-            f"(hi, lo, {_f(cs[0])}, {_f(cs[3])}, {vals[idx]}, "
+            f"(hi, lo, {a}, {rem}, {vals[idx]}, "
             f"{vlo if vlo is not None else '0.0f'});")
     return out
 
@@ -380,9 +414,9 @@ def _dotv_expr(coeffs, vals):
     None when every coefficient is zero."""
     acc = None
     for cf, v in zip(coeffs, vals):
-        if cf == 0.0 or v is None:
+        if _czero(cf) or v is None:
             continue
-        term = f"{_f(cf)} * {v}"
+        term = f"{_cval(cf)} * {v}"
         acc = term if acc is None else f"({acc}) + {term}"
     return acc
 
@@ -406,8 +440,9 @@ def _sub_struct(plan, k, s):
     o.append(f"  HD static inline float zclip(int i) {{ const float c[{nn}] = "
              f"{{{zc}}}; return c[i]; }}")
     # p = Dq x + Eq u + Fqprev z as EFT dots (fused.py:1088-1112)
-    o.append("  HD static inline void p_of(const float* x, const float* xlo, "
-             "const float* u, const float* z, const float* zlo, float* p) {")
+    o.append(f"  HD static inline void p_of({CV}, const float* x, "
+             "const float* xlo, const float* u, const float* z, "
+             "const float* zlo, float* p) {")
     for i in range(np_):
         if s["p_rows"][i]:
             o.append("    { float hi = 0.0f, lo = 0.0f;")
@@ -420,37 +455,38 @@ def _sub_struct(plan, k, s):
             o.append(f"    p[{i}] = 0.0f;")
     o.append("  }")
     # pfull = q0 + Pexp p as an EFT pair (fused.py:1113-1133)
-    o.append("  HD static inline void pfull(const float* p, float* pf, "
-             "float* pflo) {")
+    o.append(f"  HD static inline void pfull({CV}, const float* p, "
+             "float* pf, float* pflo) {")
     ps = [f"p[{i}]" for i in range(np_)]
     for ci in range(nq):
-        cs0 = s["q0_sp"][ci]
-        o.append(f"    {{ float hi = {_f(cs0[0])}, lo = {_f(cs0[3])};")
+        hi0, lo0 = _hi_lo(s["q0_sp"][ci])
+        o.append(f"    {{ float hi = {hi0}, lo = {lo0};")
         for ln in _eft_terms(s["pexp_sp"][ci], ps, None):
             o.append("      " + ln)
         o.append(f"      pf[{ci}] = hi; pflo[{ci}] = lo; }}")
     o.append("  }")
     # homotopy pf = q0 + Pexp pmix, plain float32 (fused.py:1520-1528)
-    o.append("  HD static inline void pf_mix(const float* pm, float* pf) {")
+    o.append(f"  HD static inline void pf_mix({CV}, const float* pm, "
+             "float* pf) {")
     pms = [f"pm[{i}]" for i in range(np_)]
     for ci in range(nq):
         acc = _dotv_expr(s["pexp"][ci], pms)
-        base = _f(s["q0"][ci])
+        base = _cval(s["q0"][ci])
         o.append(f"    pf[{ci}] = " + (base if acc is None
                                         else f"({acc}) + {base}") + ";")
     o.append("  }")
     # q = pf + Fq z, plain (fused.py:1213-1219)
     zz = [f"z[{i}]" for i in range(nn)]
-    o.append("  HD static inline void q_plain(const float* z, const float* pf,"
-             " float* q) {")
+    o.append(f"  HD static inline void q_plain({CV}, const float* z, "
+             "const float* pf, float* q) {")
     for ci in range(nq):
         acc = _dotv_expr(s["fq"][ci], zz)
         o.append(f"    q[{ci}] = " + (f"pf[{ci}]" if acc is None
                                        else f"({acc}) + pf[{ci}]") + ";")
     o.append("  }")
     # q as an EFT pair (fused.py:1194-1212)
-    o.append("  HD static inline void q_comp(const float* z, const float* pf,"
-             " const float* pflo, float* q, float* qlo) {")
+    o.append(f"  HD static inline void q_comp({CV}, const float* z, "
+             "const float* pf, const float* pflo, float* q, float* qlo) {")
     for ci in range(nq):
         o.append(f"    {{ float hi = pf[{ci}], lo = pflo[{ci}];")
         for ln in _eft_terms(s["fq_sp"][ci], zz, None):
@@ -458,40 +494,43 @@ def _sub_struct(plan, k, s):
         o.append(f"      q[{ci}] = hi; qlo[{ci}] = lo; }}")
     o.append("  }")
     # J = Jq Fq in float32 and in df (fused.py:1270-1300)
-    o.append("  HD static inline void jac(const float* Jq, float* J) {")
+    o.append(f"  HD static inline void jac({CV}, const float* Jq, "
+             "float* J) {")
     for a in range(nn):
         for b in range(nn):
             acc = None
             for ci in range(nq):
                 cf = s["fq"][ci][b]
-                if cf == 0.0:
+                if _czero(cf):
                     continue
-                term = f"Jq[{a * nq + ci}] * {_f(cf)}"
+                term = f"Jq[{a * nq + ci}] * {_cval(cf)}"
                 acc = term if acc is None else f"({acc}) + {term}"
             o.append(f"    J[{a * nn + b}] = {acc or '0.0f'};")
     o.append("  }")
-    o.append("  HD static inline void jac_df(const df* Jq, df* J) {")
+    o.append(f"  HD static inline void jac_df({CV}, const df* Jq, "
+             "df* J) {")
     for a in range(nn):
         for b in range(nn):
             acc = None
             for ci in range(nq):
                 cf = s["fq"][ci][b]
-                if cf == 0.0:
+                if _czero(cf):
                     continue
-                term = f"df_mul(Jq[{a * nq + ci}], {_df(cf)})"
+                term = f"df_mul(Jq[{a * nq + ci}], {_cval_df(cf)})"
                 acc = term if acc is None else f"df_add({acc}, {term})"
             o.append(f"    J[{a * nn + b}] = {acc or 'df(0.0f)'};")
     o.append("  }")
     # sensitivity columns Jq Pexp, cols[b*NN + a] (fused.py:1692-1706)
-    o.append("  HD static inline void jp(const float* Jq, float* cols) {")
+    o.append(f"  HD static inline void jp({CV}, const float* Jq, "
+             "float* cols) {")
     for b in range(np_):
         for a in range(nn):
             acc = None
             for ci in range(nq):
                 cf = s["pexp"][ci][b]
-                if cf == 0.0:
+                if _czero(cf):
                     continue
-                term = f"Jq[{a * nq + ci}] * {_f(cf)}"
+                term = f"Jq[{a * nq + ci}] * {_cval(cf)}"
                 acc = term if acc is None else f"({acc}) + {term}"
             o.append(f"    cols[{b * nn + a}] = {acc or '0.0f'};")
     o.append("  }")
@@ -512,7 +551,8 @@ def model_header(plan):
              f"NNT = {plan.nn_total}, NPT = {plan.np_total}, "
              f"NDZ = {plan.dz_total}, NSUB = {plan.nsub}, NU = {nu}, "
              f"NU_T = {len(plan.time_idx)}, "
-             f"NU_L = {len(plan.lane_idx) + len(plan.scale_idx)};")
+             f"NU_L = {len(plan.lane_idx) + len(plan.scale_idx)}, "
+             f"NVAR = {plan.nvar};")
     o.append(f"constexpr int K_NEWTON = {plan.K}, FAST_ITERS = {plan.fast}, "
              f"P_POL = {plan.P_pol}, P_FIX = {plan.P_fix}, "
              f"REFINE = {plan.refine}, VREFINE = {plan.vrefine};")
@@ -543,23 +583,24 @@ def model_header(plan):
     zs = [f"z[{i}]" for i in range(plan.nn_total)]
     zlos = [f"zlo[{i}]" for i in range(plan.nn_total)]
     # EFT output row and state update (fused.py:2273-2322)
-    o.append("HD inline void output_row(const float* x, const float* xlo, "
-             "const float* u, const float* z, const float* zlo, float* y) {")
+    o.append(f"HD inline void output_row({CV}, const float* x, "
+             "const float* xlo, const float* u, const float* z, "
+             "const float* zlo, float* y) {")
     for oi in range(plan.ny):
-        cs = plan.y0_sp[oi]
-        o.append(f"  {{ float hi = {_f(cs[0])}, lo = {_f(cs[3])};")
+        hi0, lo0 = _hi_lo(plan.y0_sp[oi])
+        o.append(f"  {{ float hi = {hi0}, lo = {lo0};")
         for ln in (_eft_terms(plan.dy_sp[oi], xs, xlos)
                    + _eft_terms(plan.ey_sp[oi], us, None)
                    + _eft_terms(plan.fy_sp[oi], zs, zlos)):
             o.append("    " + ln)
         o.append(f"    y[{oi}] = hi + lo; }}")
     o.append("}")
-    o.append("HD inline void state_update(const float* x, const float* xlo, "
-             "const float* u, const float* z, const float* zlo, float* xn, "
-             "float* xnlo) {")
+    o.append(f"HD inline void state_update({CV}, const float* x, "
+             "const float* xlo, const float* u, const float* z, "
+             "const float* zlo, float* xn, float* xnlo) {")
     for xi in range(plan.nx):
-        cs = plan.x0_sp[xi]
-        o.append(f"  {{ float hi = {_f(cs[0])}, lo = {_f(cs[3])};")
+        hi0, lo0 = _hi_lo(plan.x0_sp[xi])
+        o.append(f"  {{ float hi = {hi0}, lo = {lo0};")
         for ln in (_eft_terms(plan.a_sp[xi], xs, xlos)
                    + _eft_terms(plan.b_sp[xi], us, None)
                    + _eft_terms(plan.c_sp[xi], zs, zlos)):
@@ -590,6 +631,13 @@ def write_header(plan, build_dir):
 # -- operation counts (for the kernel's bound) --------------------------------
 
 EFT_TERM_OPS = 10     # one compensated dot term: product, its error, two_sum
+VAR_TERM_OPS = 2      # more for a per-lane coefficient: its lo * v, added
+
+
+def _eft_ops(rows):
+    """Operations of the EFT dot terms of the split-coefficient rows."""
+    return sum(EFT_TERM_OPS + VAR_TERM_OPS * isinstance(cs, _Var)
+               for row in rows for cs in row if _nz(cs))
 
 
 def _solve_ops(n, m):
@@ -613,18 +661,16 @@ def op_counts(plan):
     per_eval = []
     for s in plan.subs:
         nn, nq = s["nn"], s["nq"]
-        eft = sum(_nz(cs) for row in s["dq_sp"] + s["eq_sp"]
-                  + s["fqprev_sp"] + s["pexp_sp"] for cs in row)
-        per_sample += EFT_TERM_OPS * eft
+        per_sample += _eft_ops(s["dq_sp"] + s["eq_sp"] + s["fqprev_sp"]
+                               + s["pexp_sp"])
         g, res, Jq = record(s["nl"], nq)
         outs = list(res) + [i for row in Jq for i in row]
         nl_ops = sum(1 for i in _live(g, outs)
                      if g.nodes[i][0] not in ("const", "in"))
-        nz_fq = sum(1 for row in s["fq"] for v in row if v != 0.0)
+        nz_fq = sum(1 for row in s["fq"] for v in row if not _czero(v))
         per_eval.append(2 * nz_fq + nl_ops + 2 * nz_fq * nn
                         + 3 * nn * nq + _solve_ops(nn, 1))
-    for rows in ((plan.dy_sp, plan.ey_sp, plan.fy_sp),
-                 (plan.a_sp, plan.b_sp, plan.c_sp)):
-        per_sample += EFT_TERM_OPS * sum(
-            _nz(cs) for m in rows for row in m for cs in row)
+    for m in (plan.dy_sp, plan.ey_sp, plan.fy_sp, plan.a_sp, plan.b_sp,
+              plan.c_sp):
+        per_sample += _eft_ops(m)
     return per_sample, per_eval

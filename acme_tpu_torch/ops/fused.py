@@ -19,6 +19,9 @@ update -- with
   * the two-phase power-up of a cold run: its first samples go through a
     sibling runner whose step enters through that ladder every sample,
     starts at the last solution and ends in a df verdict.
+  * per-lane models: a list of same-topology models, whose differing
+    coefficients reach the step as two per-lane (hi, lo) tables (``_Var``
+    entries) while the equal ones stay literals.
 
 Two implementations of that step share one preparation (``_Plan``):
 
@@ -77,15 +80,14 @@ _KNOBS = {
     "pivot": ((True,), _STEP),
     "verdict_jac": (("df",), _STEP),
     "rel_tol": (((None, None, None),), _STEP),
-    "model": ((), "ROADMAP Queue 1: per-lane model tables (_Var)"),
     "mesh": ((None,), "ROADMAP Queue 1: lanes split across GPUs"),
 }
 # the conservative configuration of the two-phase power-up (fused.py:406-416)
 _POWERUP_SAFE = dict(fast_iters=0, extrapolate="track", polish_only=False,
                      df_polish="final")
 # the integer power-up overrides and the runner attribute each sets
-# (fused.py:2831-2861); the step knobs of _KNOBS but df_solve, rel_tol,
-# model and mesh are overrides too
+# (fused.py:2831-2861); the step knobs of _KNOBS but df_solve, rel_tol
+# and mesh are overrides too
 _POWERUP_INTS = {"newton_iters": "K", "fast_iters": "fast_iters",
                  "polish_iters": "polish_iters",
                  "polish_fixed": "polish_fixed",
@@ -113,8 +115,7 @@ def _powerup_overrides(powerup):
                        else powerup).items():
         if key in _POWERUP_INTS:
             out[_POWERUP_INTS[key]] = int(v)
-        elif key in _KNOBS and key not in ("df_solve", "rel_tol", "model",
-                                           "mesh"):
+        elif key in _KNOBS and key not in ("df_solve", "rel_tol", "mesh"):
             if key == "extrapolate":
                 v = "track" if v == "track" else bool(v)
             elif key == "df_polish":
@@ -181,8 +182,21 @@ def _prod_const(cs, v, vh, vl):
     return pr, err
 
 
+class _Var:
+    """Per-lane-varying coefficient: index into the runtime (hi, lo)
+    coefficient tables (multi-model FusedRunner, fused.py:157-166)."""
+    __slots__ = ("i",)
+
+    def __init__(self, i):
+        self.i = i
+
+    def __repr__(self):
+        return f"_Var({self.i})"
+
+
 def _nz(cs):
-    return cs[0] != 0.0 or cs[3] != 0.0
+    """Not a structural zero: only constants can be skipped."""
+    return isinstance(cs, _Var) or cs[0] != 0.0 or cs[3] != 0.0
 
 
 # -- runner -------------------------------------------------------------------
@@ -196,15 +210,23 @@ class FusedRunner:
     Inputs listed in ``lane_input_idx`` are per-lane constants (the sweep
     axis); the rest come from the shared time series, those listed in
     ``lane_scale_idx`` multiplied by a per-lane scale (``lane_values``
-    holds the constants, then the scales).  ``device`` holds
-    the state and outputs: a CUDA device runs the kernel, the CPU the
-    plain version.  The defaults are the production configuration of the
+    holds the constants, then the scales).  ``model`` may be a list of
+    models of one topology (same dimensions and decomposition): lane i
+    then runs ``models[i % len(models)]``, every prepared matrix
+    coefficient that differs between them is read from two per-lane
+    (hi, lo) tables that the kernel takes as arguments, and the rest stay
+    literals of its code; the element physics is ``models[0]``'s, so only
+    matrix coefficients may differ (component values, pot positions that
+    keep the topology).  ``device`` holds
+    the state and outputs: a CUDA device (the default; without a card the
+    constructor raises) runs the kernel, ``device="cpu"`` the plain
+    version.  The defaults are the production configuration of the
     JAX package's bench (``fast_iters=1``, ``polish_fixed=2``,
     ``df_polish="comp_final"``, ``df_solve="auto"``, ``fast_verify="merge"``).
     """
 
     def __init__(self, model, lane_input_idx: Sequence[int] = (), *,
-                 device="cpu", lane_scale_idx: Sequence[int] = (),
+                 device="cuda", lane_scale_idx: Sequence[int] = (),
                  newton_iters: int = 192, tol: float = 1e-9,
                  step_clip: float = 1.0, center: bool = True,
                  center_u=None, extrapolate=True, refine: int = 1,
@@ -218,8 +240,21 @@ class FusedRunner:
                  polish_only: bool = False, fast_keep: str = "gate",
                  stall_strikes: int = 2, plateau_strikes: int = 6,
                  powerup=None, powerup_samples: int = 4096, mesh=None):
-        if isinstance(model, (list, tuple)):
-            _check_ported("model", "[...]")
+        # per-lane model matrices (fused.py:331-348): a list of
+        # same-topology models; every prepared coefficient that differs
+        # between them becomes a per-lane (hi, lo) table entry, equal ones
+        # stay literals of the kernel.  Lane i runs models[i % len(models)].
+        models = list(model) if isinstance(model, (list, tuple)) else [model]
+        m0 = models[0]
+        for m in models[1:]:
+            if (m.nx, m.nu, m.ny, m.nsubsystems) != \
+                    (m0.nx, m0.nu, m0.ny, m0.nsubsystems) or any(
+                    (m.nn(k), m.np(k)) != (m0.nn(k), m0.np(k))
+                    for k in range(m0.nsubsystems)):
+                raise ValueError(
+                    "per-lane models must share dimensions/decomposition")
+        self.models = models
+        model = m0
         if extrapolate != "track":
             extrapolate = bool(extrapolate)
         for knob, val in (("extrapolate", extrapolate),
@@ -233,6 +268,10 @@ class FusedRunner:
                           ("rel_tol", (rel_tol, rel_gate, rel_tol_polish))):
             _check_ported(knob, val)
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"FusedRunner(device={str(device)!r}): no CUDA card found; "
+                'pass device="cpu" for the plain version')
         self.model = model
         self.K = int(newton_iters)
         # 0: no unguarded fast step, the robust path (gated Newton,
@@ -276,17 +315,69 @@ class FusedRunner:
         self.dz_total = sum(model.nn(k) * model.np(k)
                             for k in range(self.nsub))
         self._steady_floors = None
-        self._prepare(model, center, center_u)
+        # (hi, lo) coefficient tables by lane count, shared with the sibling
+        self._coef_cache = {}
+        self._prepare(center, center_u)
         self.plan = _Plan(self)
 
-    # -- preparation (fused.py:563-757, float64 numpy) ------------------------
-    def _prepare(self, m, center, center_u):
-        self.u_ss = np.zeros(m.nu)
+    # -- preparation (fused.py:563-815, float64 numpy) ------------------------
+    def _prepare(self, center, center_u):
+        m0 = self.model
+        self.u_ss = np.zeros(m0.nu)
         if center_u is not None:
             self.u_ss = np.asarray(center_u, float).copy()
         elif self.lane_idx:
             for i in self.lane_idx:
                 self.u_ss[i] = 0.5  # pots at mid travel
+        # one entry per model, each with its own centering; the state
+        # balancing scales are shared (from models[0]) so that the state
+        # carries stay comparable lane to lane (fused.py:591-676)
+        self._prep = []
+        self.Tx = None
+        for m in self.models:
+            self._prep.append(self._prepare_model(m, center))
+        p0 = self.prep = self._prep[0]
+        self.x_ss, self.z_ss = p0["x_ss"], p0["z_ss"]
+        self.q0_c = p0["q0"]
+        self.tols = [max(p["tols"][k] for p in self._prep)
+                     for k in range(self.nsub)]
+        self.gates = [max(p["gates"][k] for p in self._prep)
+                      for k in range(self.nsub)]
+        self.dzdp0 = p0["dzdp0"]
+        # structural conditioning per subsystem (fused.py:692-737): the
+        # equilibrated cond(J) at the operating point, the largest over the
+        # models; above 100 the verdict runs df physics and a df
+        # elimination (sub_fragile)
+        self.sub_fragile = []
+        self.sub_cond_eq = []
+        for kk in range(self.nsub):
+            ce_max = 0.0
+            for m, p in zip(self.models, self._prep):
+                if not m.nn(kk):
+                    continue
+                with np.errstate(all="ignore"):
+                    _, Jq0 = m.nl_funcs[kk](np, p["q0"][kk])
+                    Je = np.asarray(Jq0 @ np.asarray(m.fqs[kk], float),
+                                    float)
+                    for _ in range(4):
+                        r = np.sqrt(np.abs(Je).max(1))
+                        r[(r == 0) | ~np.isfinite(r)] = 1.0
+                        Je = Je / r[:, None]
+                        c2 = np.sqrt(np.abs(Je).max(0))
+                        c2[(c2 == 0) | ~np.isfinite(c2)] = 1.0
+                        Je = Je / c2[None, :]
+                    try:
+                        ce = np.linalg.cond(Je)
+                    except np.linalg.LinAlgError:
+                        ce = np.inf
+                ce_max = max(ce_max, float(ce)) if np.isfinite(ce) \
+                    else np.inf
+            self.sub_cond_eq.append(ce_max)
+            self.sub_fragile.append(ce_max > 100.0)
+        self._merge_coefficients()
+
+    def _prepare_model(self, m, center):
+        """One model's centered, balanced coefficients (fused.py:599-676)."""
         x_ss, z_ss = self._center_of(m, center)
         a = np.asarray(m.a, float)
         b = np.asarray(m.b, float)
@@ -299,7 +390,8 @@ class FusedRunner:
                 + np.asarray(m.fy, float) @ z_ss)
         dy = np.asarray(m.dy, float)
         dq_list = [np.asarray(m.dqs[k], float) for k in range(self.nsub)]
-        self.Tx = self._balance_states(a, b, c, dy, dq_list)
+        if self.Tx is None:
+            self.Tx = self._balance_states(a, b, c, dy, dq_list)
         Tc_ = self.Tx[:, None] if m.nx else np.ones((0, 1))
         Tr_ = self.Tx[None, :] if m.nx else np.ones((1, 0))
         p = dict(
@@ -328,8 +420,8 @@ class FusedRunner:
                   + np.asarray(m.fqs[kk], float) @ z_ss[off:off + nn_k])
             p["q0"].append(q0)
             off += nn_k
-            floor = float(self._floor_measure(kk, q0[:, None]).max()) \
-                if nn_k else 0.0
+            floor = float(self._floor_measure(kk, q0[:, None], model=m)
+                          .max()) if nn_k else 0.0
             p["tols"].append(max(self.tol, 8.0 * floor))
             p["gates"].append(max(96.0 * floor, 32.0 * self.tol))
             res, Jq = m.nl_funcs[kk](np, q0)
@@ -340,38 +432,69 @@ class FusedRunner:
             except np.linalg.LinAlgError:
                 d0 = np.zeros((nn_k, np_k))
             p["dzdp0"].append(d0)
-        self.prep = p
-        self.x_ss, self.z_ss = x_ss, z_ss
-        self.q0_c = p["q0"]
-        self.tols = list(p["tols"])
-        self.gates = list(p["gates"])
-        self.dzdp0 = p["dzdp0"]
-        # structural conditioning per subsystem (fused.py:692-737): the
-        # equilibrated cond(J) at the operating point; above 100 the
-        # verdict runs df physics and a df elimination (sub_fragile)
-        self.sub_fragile = []
-        self.sub_cond_eq = []
-        for kk in range(self.nsub):
-            ce_max = 0.0
-            if m.nn(kk):
-                with np.errstate(all="ignore"):
-                    _, Jq0 = m.nl_funcs[kk](np, p["q0"][kk])
-                    Je = np.asarray(Jq0 @ np.asarray(m.fqs[kk], float),
-                                    float)
-                    for _ in range(4):
-                        r = np.sqrt(np.abs(Je).max(1))
-                        r[(r == 0) | ~np.isfinite(r)] = 1.0
-                        Je = Je / r[:, None]
-                        c2 = np.sqrt(np.abs(Je).max(0))
-                        c2[(c2 == 0) | ~np.isfinite(c2)] = 1.0
-                        Je = Je / c2[None, :]
-                    try:
-                        ce = np.linalg.cond(Je)
-                    except np.linalg.LinAlgError:
-                        ce = np.inf
-                ce_max = float(ce) if np.isfinite(ce) else np.inf
-            self.sub_cond_eq.append(ce_max)
-            self.sub_fragile.append(ce_max > 100.0)
+        return p
+
+    def _merge_coefficients(self):
+        """Compare every prepared coefficient across the models: equal ones
+        stay literals (floats), differing ones become ``_Var`` indices into
+        the per-lane (hi, lo) tables (fused.py:759-798)."""
+        preps = self._prep
+        n = len(preps)
+        var_vals = []
+
+        def mk(get):
+            arrs = [np.asarray(get(p), float) for p in preps]
+            a0 = arrs[0]
+            if n == 1:
+                return a0.tolist()
+            stack = np.stack(arrs)
+            eq = np.all(stack == stack[0:1], axis=0)
+            out = np.empty(a0.shape, object)
+            for idx in np.ndindex(a0.shape):
+                if eq[idx]:
+                    out[idx] = float(a0[idx])
+                else:
+                    out[idx] = _Var(len(var_vals))
+                    var_vals.append(stack[(slice(None),) + idx])
+            return out.tolist()
+
+        self.P = dict(
+            a=mk(lambda p: p["a"]), b=mk(lambda p: p["b"]),
+            c=mk(lambda p: p["c"]), x0=mk(lambda p: p["x0"]),
+            dy=mk(lambda p: p["dy"]), ey=mk(lambda p: p["ey"]),
+            fy=mk(lambda p: p["fy"]), y0=mk(lambda p: p["y0"]),
+            subs=[dict(
+                dq=mk(lambda p, k=k: p["dq"][k]),
+                eq=mk(lambda p, k=k: p["eq"][k]),
+                fqprev=mk(lambda p, k=k: p["fqprev"][k]),
+                fq=mk(lambda p, k=k: p["fq"][k]),
+                pexp=mk(lambda p, k=k: p["pexp"][k]),
+                q0=mk(lambda p, k=k: p["q0"][k]))
+                for k in range(self.nsub)])
+        self.nvar = len(var_vals)
+        self.var_tab = (np.stack(var_vals) if var_vals
+                        else np.zeros((0, n)))
+
+    def _lane_model_idx(self, L):
+        """Lane -> model mapping (cyclic)."""
+        return np.arange(L) % len(self.models)
+
+    def _coef_tables(self, L):
+        """The per-lane coefficient tables for ``L`` lanes: (hi, lo) float32
+        tensors of shape (max(nvar, 1), L) on the runner's device, lane l
+        holding the values of ``models[l % len(models)]`` (fused.py:804-815,
+        there reshaped to (nvar, S, 128))."""
+        if L not in self._coef_cache:
+            nv = max(self.nvar, 1)
+            hi = np.zeros((nv, L), np.float32)
+            lo = np.zeros((nv, L), np.float32)
+            if self.nvar:
+                vals = self.var_tab[:, self._lane_model_idx(L)]
+                hi[:self.nvar] = vals.astype(np.float32)
+                lo[:self.nvar] = (vals - hi[:self.nvar].astype(np.float64)
+                                  ).astype(np.float32)
+            self._coef_cache[L] = (self._tensor(hi), self._tensor(lo))
+        return self._coef_cache[L]
 
     def _center_of(self, m, center):
         if not (center and (m.nx or self.nn_total)):
@@ -388,10 +511,10 @@ class FusedRunner:
             except Exception:
                 return np.zeros(m.nx), np.zeros(self.nn_total)
 
-    def _floor_measure(self, kk, q64, comp=True):
+    def _floor_measure(self, kk, q64, comp=True, model=None):
         """Empirical float32 residual floor at the points ``q64`` (nq, L),
         from the element physics in simulated kernel arithmetic."""
-        nl = self.model.nl_funcs[kk]
+        nl = (model or self.model).nl_funcs[kk]
         res64, _ = nl(np, q64)
         qhi = q64.astype(np.float32)
         res32, Jq32 = nl(np, qhi)
@@ -443,116 +566,129 @@ class FusedRunner:
     def initial_state(self, lanes: int):
         """Initial carry, (n, L) float32 tensors on the runner's device
         (fused.py:2534-2598): x = 0, z = the initial operating point, and a
-        consistent extrapolation origin (wp, zw)."""
-        m, p = self.model, self.prep
-        x0v = np.zeros(1) if self.nx == 0 else -p["x_ss"] / self.Tx
-        xlo_v = x0v - x0v.astype(np.float32).astype(np.float64)
-        if self.nn_total:
-            z0 = (np.concatenate([np.asarray(z, float) for z in m.init_zs])
-                  - p["z_ss"])
-        else:
-            z0 = np.zeros(1)
-        dz0 = (np.concatenate([d.reshape(-1) for d in p["dzdp0"]])
-               if self.dz_total else np.zeros(1))
-        wp0 = np.zeros(max(self.np_total, 1))
-        if self.np_total:
-            u_c = -self.u_ss
-            off = 0
-            for kk in range(self.nsub):
-                npk = m.np(kk)
-                wp0[off:off + npk] = (
-                    p["dq"][kk] @ x0v[:self.nx]
-                    + np.asarray(m.eqs[kk], float) @ u_c
-                    + np.asarray(m.fqprevs[kk], float) @ z0[:self.nn_total])
-                off += npk
+        consistent extrapolation origin (wp, zw); with per-lane models,
+        each lane starts at its own model's."""
+        midx = self._lane_model_idx(lanes)
+        rows = {k: [] for k in ("x", "xlo", "z", "wp", "dz")}
+        for m, p in zip(self.models, self._prep):
+            x0v = np.zeros(1) if self.nx == 0 else -p["x_ss"] / self.Tx
+            xlo_v = x0v - x0v.astype(np.float32).astype(np.float64)
+            if self.nn_total:
+                z0 = (np.concatenate([np.asarray(z, float)
+                                      for z in m.init_zs]) - p["z_ss"])
+            else:
+                z0 = np.zeros(1)
+            dz0 = (np.concatenate([d.reshape(-1) for d in p["dzdp0"]])
+                   if self.dz_total else np.zeros(1))
+            wp0 = np.zeros(max(self.np_total, 1))
+            if self.np_total:
+                u_c = -self.u_ss
+                off = 0
+                for kk in range(self.nsub):
+                    npk = m.np(kk)
+                    wp0[off:off + npk] = (
+                        p["dq"][kk] @ x0v[:self.nx]
+                        + np.asarray(m.eqs[kk], float) @ u_c
+                        + np.asarray(m.fqprevs[kk], float)
+                        @ z0[:self.nn_total])
+                    off += npk
+            for key, v in zip(("x", "xlo", "z", "wp", "dz"),
+                              (x0v, xlo_v, z0, wp0, dz0)):
+                rows[key].append(v)
 
-        def per_lane(v):
-            return self._tensor(np.repeat(np.asarray(v, float)[:, None],
-                                          lanes, axis=1))
+        def per_lane(key):
+            return self._tensor(np.asarray(rows[key], float)[midx].T)
 
         zeros = lambda n: torch.zeros((n, lanes), dtype=torch.float32,
                                       device=self.device)
-        return {"x": per_lane(x0v), "xlo": per_lane(xlo_v),
-                "z": per_lane(z0), "zlo": zeros(max(self.nn_total, 1)),
-                "zw": per_lane(z0), "wp": per_lane(wp0),
-                "dzdp": per_lane(dz0), "pmode": zeros(max(self.nsub, 1))}
+        return {"x": per_lane("x"), "xlo": per_lane("xlo"),
+                "z": per_lane("z"), "zlo": zeros(max(self.nn_total, 1)),
+                "zw": per_lane("z"), "wp": per_lane("wp"),
+                "dzdp": per_lane("dz"), "pmode": zeros(max(self.nsub, 1))}
 
     def steady_initial_state(self, lane_values, runin: int = 4096,
                              rounds: int = 12):
         """Per-lane steady start (fused.py:2600-2754): every lane begins at
-        the steady state of its own constant inputs, computed on the host
-        by :func:`acme_tpu_torch.runtime.steadystate_sweep`.  Also installs
-        the certified per-subsystem residual floors for
+        the steady state of its own model and constant inputs, computed on
+        the host by :func:`acme_tpu_torch.runtime.steadystate_sweep`.  Also
+        installs the certified per-subsystem residual floors for
         ``_lane_tolerances``."""
         from ..runtime import steadystate_sweep
-        m, p = self.model, self.prep
         lane_values = np.asarray(lane_values, float)
         nu_l0 = len(self.lane_idx)
         L = self._lanes(lane_values)
+        midx = self._lane_model_idx(L)
         x_l = np.zeros((L, max(self.nx, 1)))
         z_l = np.zeros((L, max(self.nn_total, 1)))
         wp_l = np.zeros((L, max(self.np_total, 1)))
         dz_l = np.zeros((L, max(self.dz_total, 1)))
         floors_l = np.zeros((L, max(self.nsub, 1)))
-        u_lanes = np.broadcast_to(self.u_ss, (L, m.nu)).astype(float).copy()
-        if nu_l0 and lane_values.size:
-            u_lanes[:, list(self.lane_idx)] = lane_values[:, :nu_l0]
-        uu, inv = np.unique(u_lanes, axis=0, return_inverse=True)
-        inv = np.asarray(inv).reshape(-1)
-        if uu.shape[0] < u_lanes.shape[0]:
-            xs, zs, cv, fl = steadystate_sweep(m, uu, runin=runin,
-                                               rounds=rounds,
-                                               return_floors=True)
-            if not cv.all() and uu.shape[0] <= 64:
-                bad = np.nonzero(~cv)[0]
-                xs2, zs2, cv2, fl2 = steadystate_sweep(
-                    m, uu[bad], runin=max(runin, 65536), rounds=rounds,
-                    return_floors=True)
-                xs[bad], zs[bad] = xs2, zs2
-                cv[bad], fl[bad] = cv2, fl2
-            xs, zs, cv, fl = xs[inv], zs[inv], cv[inv], fl[inv]
-        else:
-            xs, zs, cv, fl = steadystate_sweep(m, u_lanes, runin=runin,
-                                               rounds=rounds,
-                                               return_floors=True)
-        conv = np.asarray(cv, bool)
-        floors_l[:, :fl.shape[1]] = fl
-        if self.nx:
-            x_l[:, :self.nx] = (xs - p["x_ss"]) / self.Tx
-        if self.nn_total:
-            z_l[:, :self.nn_total] = zs - p["z_ss"]
-        uc = u_lanes - self.u_ss
-        off = doff = zoff = 0
-        for kk in range(self.nsub):
-            npk, nnk = m.np(kk), m.nn(kk)
-            if self.np_total:
-                wp_l[:, off:off + npk] = (
-                    x_l[:, :self.nx] @ p["dq"][kk].T
-                    + uc @ np.asarray(m.eqs[kk], float).T
-                    + z_l[:, :self.nn_total]
-                    @ np.asarray(m.fqprevs[kk], float).T)
-            if nnk and npk:
-                p_phys = (np.asarray(m.dqs[kk], float) @ xs.T
-                          + np.asarray(m.eqs[kk], float) @ u_lanes.T
-                          + np.asarray(m.fqprevs[kk], float) @ zs.T)
-                fq = np.asarray(m.fqs[kk], float)
-                pexp = np.asarray(m.pexps[kk], float)
-                q = (np.asarray(m.q0s[kk], float)[:, None]
-                     + pexp @ p_phys + fq @ zs.T[zoff:zoff + nnk])
-                with np.errstate(all="ignore"):
-                    _, Jq = m.nl_funcs[kk](np, q)
-                    J = np.einsum("ijl,jk->lik", Jq, fq)
-                    Jp = np.einsum("ijl,jk->lik", Jq, pexp)
-                    d = -np.linalg.pinv(J) @ Jp
-                bad = ~np.isfinite(d).all(axis=(1, 2))
-                if bad.any():
-                    d[bad] = p["dzdp0"][kk]
-                steep = np.abs(d).max(axis=(1, 2)) > 1e3
-                d[steep] = 0.0
-                dz_l[:, doff:doff + nnk * npk] = d.reshape(L, -1)
-            off += npk
-            doff += nnk * npk
-            zoff += nnk
+        conv = np.ones(L, bool)
+        for mi, (m, p) in enumerate(zip(self.models, self._prep)):
+            sel = np.nonzero(midx == mi)[0]
+            if sel.size == 0:
+                continue
+            u_lanes = np.broadcast_to(self.u_ss,
+                                      (sel.size, m.nu)).astype(float).copy()
+            if nu_l0 and lane_values.size:
+                u_lanes[:, list(self.lane_idx)] = lane_values[sel, :nu_l0]
+            uu, inv = np.unique(u_lanes, axis=0, return_inverse=True)
+            inv = np.asarray(inv).reshape(-1)
+            if uu.shape[0] < u_lanes.shape[0]:
+                xs, zs, cv, fl = steadystate_sweep(m, uu, runin=runin,
+                                                   rounds=rounds,
+                                                   return_floors=True)
+                if not cv.all() and uu.shape[0] <= 64:
+                    bad = np.nonzero(~cv)[0]
+                    xs2, zs2, cv2, fl2 = steadystate_sweep(
+                        m, uu[bad], runin=max(runin, 65536), rounds=rounds,
+                        return_floors=True)
+                    xs[bad], zs[bad] = xs2, zs2
+                    cv[bad], fl[bad] = cv2, fl2
+                xs, zs, cv, fl = xs[inv], zs[inv], cv[inv], fl[inv]
+            else:
+                xs, zs, cv, fl = steadystate_sweep(m, u_lanes, runin=runin,
+                                                   rounds=rounds,
+                                                   return_floors=True)
+            conv[sel] = np.asarray(cv, bool)
+            floors_l[sel, :fl.shape[1]] = fl
+            if self.nx:
+                x_l[sel, :self.nx] = (xs - p["x_ss"]) / self.Tx
+            if self.nn_total:
+                z_l[sel, :self.nn_total] = zs - p["z_ss"]
+            uc = u_lanes - self.u_ss
+            off = doff = zoff = 0
+            for kk in range(self.nsub):
+                npk, nnk = m.np(kk), m.nn(kk)
+                if self.np_total:
+                    wp_l[sel, off:off + npk] = (
+                        x_l[sel, :self.nx] @ p["dq"][kk].T
+                        + uc @ np.asarray(m.eqs[kk], float).T
+                        + z_l[sel, :self.nn_total]
+                        @ np.asarray(m.fqprevs[kk], float).T)
+                if nnk and npk:
+                    p_phys = (np.asarray(m.dqs[kk], float) @ xs.T
+                              + np.asarray(m.eqs[kk], float) @ u_lanes.T
+                              + np.asarray(m.fqprevs[kk], float) @ zs.T)
+                    fq = np.asarray(m.fqs[kk], float)
+                    pexp = np.asarray(m.pexps[kk], float)
+                    q = (np.asarray(m.q0s[kk], float)[:, None]
+                         + pexp @ p_phys + fq @ zs.T[zoff:zoff + nnk])
+                    with np.errstate(all="ignore"):
+                        _, Jq = m.nl_funcs[kk](np, q)
+                        J = np.einsum("ijl,jk->lik", Jq, fq)
+                        Jp = np.einsum("ijl,jk->lik", Jq, pexp)
+                        d = -np.linalg.pinv(J) @ Jp
+                    bad = ~np.isfinite(d).all(axis=(1, 2))
+                    if bad.any():
+                        d[bad] = p["dzdp0"][kk]
+                    steep = np.abs(d).max(axis=(1, 2)) > 1e3
+                    d[steep] = 0.0
+                    dz_l[sel, doff:doff + nnk * npk] = d.reshape(sel.size,
+                                                                 -1)
+                off += npk
+                doff += nnk * npk
+                zoff += nnk
         n_bad = int((~conv).sum())
         floors_l[~conv] = 0.0
         self._steady_floors = floors_l
@@ -585,20 +721,28 @@ class FusedRunner:
         """Per-lane loop tolerance/gate and acceptance gate
         (fused.py:2756-2817): (tol (nsub, L), gates (3 nsub, L)) float32."""
         nsub = max(self.nsub, 1)
-        m, p = self.model, self.prep
         tol_l = np.full((nsub, L), max(self.tol, 1e-9), np.float32)
         gate_l = np.full((3 * nsub, L), 32.0 * self.tol, np.float32)
         gate_l[2 * nsub:] = max(self.tol, 1e-9)
         lv = np.asarray(lane_values_centered, float)
+        midx = self._lane_model_idx(L)
         for kk in range(self.nsub):
-            q = np.broadcast_to(p["q0"][kk][:, None],
-                                (len(p["q0"][kk]), L)).copy()
-            if self.lane_idx and lv.size:
-                eq_lane = np.asarray(m.eqs[kk], float)[:, list(self.lane_idx)]
-                q += np.asarray(m.pexps[kk], float) \
-                    @ (eq_lane @ lv[:, :len(self.lane_idx)].T)
-            floor_l = self._floor_measure(kk, q, comp=False)
-            floor_f = self._floor_measure(kk, q)
+            floor_l = np.zeros(L)
+            floor_f = np.zeros(L)
+            for mi, (m, p) in enumerate(zip(self.models, self._prep)):
+                sel = np.nonzero(midx == mi)[0]
+                if sel.size == 0:
+                    continue
+                q = np.broadcast_to(p["q0"][kk][:, None],
+                                    (len(p["q0"][kk]), sel.size)).copy()
+                if self.lane_idx and lv.size:
+                    eq_lane = np.asarray(m.eqs[kk], float)[
+                        :, list(self.lane_idx)]
+                    q += np.asarray(m.pexps[kk], float) \
+                        @ (eq_lane @ lv[sel, :len(self.lane_idx)].T)
+                floor_l[sel] = self._floor_measure(kk, q, comp=False,
+                                                   model=m)
+                floor_f[sel] = self._floor_measure(kk, q, model=m)
             tol_l[kk] = np.maximum(self.tol, 8.0 * floor_l)
             gate_l[kk] = np.maximum(96.0 * floor_l, 32.0 * self.tol)
             gate_l[nsub + kk] = np.maximum(96.0 * floor_f, 32.0 * self.tol)
@@ -710,7 +854,7 @@ class FusedRunner:
         if state is None:
             state = self.initial_state(L)
         y, state, fails, iters, floored = fused_step(
-            self.plan, u, lv, tol_l, gate_l, state)
+            self.plan, u, lv, tol_l, gate_l, state, self._coef_tables(L))
         y = y.permute(2, 1, 0)[:, :self.ny, :]
         info = FusedInfo(fails=fails, iters=iters.T, floored=floored)
         if check:
@@ -729,13 +873,17 @@ class _Plan:
     offsets, and the solver configuration (``_build``, fused.py:852-1003)."""
 
     def __init__(self, r: FusedRunner):
-        p, m = r.prep, r.model
-        tl = lambda a: np.asarray(a, float).tolist()
-        spl = lambda rows: [[_const_split(v) for v in row] for row in rows]
+        P, m = r.P, r.model
+        # a constant is split here; a _Var stays a handle and is split at
+        # run time (fused.py:870-874)
+        SP = lambda v: v if isinstance(v, _Var) else _const_split(v)
+        spl = lambda rows: [[SP(v) for v in row] for row in rows]
         self.nx, self.ny, self.nsub = r.nx, r.ny, r.nsub
         self.nn_total, self.np_total = r.nn_total, r.np_total
         self.dz_total = r.dz_total
         self.nu = m.nu
+        # entries of the per-lane coefficient tables (0 for one model)
+        self.nvar = r.nvar
         self.time_idx, self.lane_idx = r.time_idx, r.lane_idx
         self.scale_idx = r.scale_idx
         self.K, self.fast = r.K, max(0, r.fast_iters)
@@ -756,23 +904,25 @@ class _Plan:
         self.tol = r.tol
         # the kernel's library and its file name, set by build.load_kernel
         self.cuda_lib = self.cuda_name = None
-        self.a, self.b, self.c = tl(p["a"]), tl(p["b"]), tl(p["c"])
-        self.x0, self.y0 = tl(p["x0"]), tl(p["y0"])
-        self.dy, self.ey, self.fy = tl(p["dy"]), tl(p["ey"]), tl(p["fy"])
+        self.a, self.b, self.c = P["a"], P["b"], P["c"]
+        self.x0, self.y0 = P["x0"], P["y0"]
+        self.dy, self.ey, self.fy = P["dy"], P["ey"], P["fy"]
         self.a_sp, self.b_sp, self.c_sp = (spl(self.a), spl(self.b),
                                            spl(self.c))
         self.dy_sp, self.ey_sp, self.fy_sp = (spl(self.dy), spl(self.ey),
                                               spl(self.fy))
-        self.x0_sp = [_const_split(v) for v in self.x0]
-        self.y0_sp = [_const_split(v) for v in self.y0]
+        self.x0_sp = [SP(v) for v in self.x0]
+        self.y0_sp = [SP(v) for v in self.y0]
         self.subs = []
         zoff = poff = doff = 0
         for k in range(r.nsub):
             nn, np_, nq = m.nn(k), m.np(k), m.nq(k)
+            PS = P["subs"][k]
+            # the element physics is models[0]'s: the models of a list
+            # differ in matrix coefficients only (fused.py:898)
             s = dict(
-                dq=tl(p["dq"][k]), eq=tl(p["eq"][k]),
-                fqprev=tl(p["fqprev"][k]), fq=tl(p["fq"][k]),
-                pexp=tl(p["pexp"][k]), q0=tl(p["q0"][k]),
+                dq=PS["dq"], eq=PS["eq"], fqprev=PS["fqprev"], fq=PS["fq"],
+                pexp=PS["pexp"], q0=PS["q0"],
                 nl=m.nl_funcs[k], nn=nn, np=np_, nq=nq,
                 off=zoff, poff=poff, doff=doff,
                 zclip=[r.step_clip] * nn,
@@ -780,7 +930,7 @@ class _Plan:
                 fold=bool(r.sub_fragile[k] and r.sub_cond_eq[k] > 1e4))
             for key in ("dq", "eq", "fqprev", "fq", "pexp"):
                 s[key + "_sp"] = spl(s[key])
-            s["q0_sp"] = [_const_split(v) for v in s["q0"]]
+            s["q0_sp"] = [SP(v) for v in s["q0"]]
             s["p_rows"] = [any(_nz(cs) for row in (s["dq_sp"][i],
                                                    s["eq_sp"][i],
                                                    s["fqprev_sp"][i])
@@ -793,36 +943,55 @@ class _Plan:
 
 # -- dispatch -----------------------------------------------------------------
 
-def fused_step(plan, u, lv, tol, gate, state):
+def fused_step(plan, u, lv, tol, gate, state, coef=None):
     """Run the fused step over the whole time axis.
 
     Inputs are float32 tensors on one device: u (T, nu_t), lv (nu_l, L),
-    tol (nsub, L), gate (3 nsub, L) and the state dict of (n, L) tensors.
+    tol (nsub, L), gate (3 nsub, L), the state dict of (n, L) tensors and
+    ``coef``, the (hi, lo) per-lane coefficient tables of a multi-model
+    runner, each (nvar, L) (``FusedRunner._coef_tables``; None for a plan
+    without varying coefficients).
     Returns (y (T, ny, L), new state, fails (L,), iters (nsub, L),
     floored (L,)).  CUDA tensors go through the kernel (or raise); the
     plain torch version runs only for CPU tensors."""
     dev = u.device
     if dev.type == "cuda":
-        return _launch_kernel(plan, u, lv, tol, gate, state)
+        return _launch_kernel(plan, u, lv, tol, gate, state, coef)
     if dev.type == "cpu":
-        return plain_run(plan, u, lv, tol, gate, state)
+        return plain_run(plan, u, lv, tol, gate, state, coef)
     raise ValueError(f"unsupported device {dev}")
 
 
-def _library_call(fn, plan, u, lv, tol, gate, state, *extra):
+def _coef_pair(plan, coef, like):
+    """The (hi, lo) tables to hand on: ``coef``, or for a plan without
+    varying coefficients one row of zeros each (never read)."""
+    if coef is not None:
+        return tuple(coef)
+    if plan.nvar:
+        raise ValueError(
+            f"this plan reads {plan.nvar} per-lane coefficients: pass "
+            "coef=runner._coef_tables(L)")
+    z = torch.zeros((1, like.shape[1]), dtype=torch.float32,
+                    device=like.device)
+    return z, z
+
+
+def _library_call(fn, plan, u, lv, tol, gate, state, coef, *extra):
     """Check the inputs, allocate the outputs and call the library entry
     ``fn`` (the CUDA launch or its host twin) on them."""
     L = lv.shape[1]
     T = u.shape[0]
     dev = u.device
     dims = _state_dims(plan)
-    args = [u, lv, tol, gate] + [state[k] for k in STATE_KEYS]
+    ch, cl = _coef_pair(plan, coef, lv)
+    args = [u, lv, tol, gate, ch, cl] + [state[k] for k in STATE_KEYS]
     shapes = [(T, max(len(plan.time_idx), 1)),
               (max(len(plan.lane_idx) + len(plan.scale_idx), 1), L),
-              (max(plan.nsub, 1), L), (3 * max(plan.nsub, 1), L)] \
+              (max(plan.nsub, 1), L), (3 * max(plan.nsub, 1), L),
+              (max(plan.nvar, 1), L), (max(plan.nvar, 1), L)] \
         + [(dims[k], L) for k in STATE_KEYS]
-    for name, t, shp in zip(("u", "lanes", "tol", "gate") + STATE_KEYS,
-                            args, shapes):
+    for name, t, shp in zip(("u", "lanes", "tol", "gate", "coef hi",
+                             "coef lo") + STATE_KEYS, args, shapes):
         if t.device != dev or t.dtype != torch.float32 \
                 or tuple(t.shape) != shp or not t.is_contiguous():
             raise ValueError(
@@ -847,7 +1016,7 @@ def _library_call(fn, plan, u, lv, tol, gate, state, *extra):
     return y, out, fails, iters, floored
 
 
-def _launch_kernel(plan, u, lv, tol, gate, state):
+def _launch_kernel(plan, u, lv, tol, gate, state, coef=None):
     from .build import load_kernel
     lib = load_kernel(plan)
     with torch.cuda.device(u.device):
@@ -857,7 +1026,7 @@ def _launch_kernel(plan, u, lv, tol, gate, state):
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record(stream)
         result = _library_call(lib.acme_fused_launch, plan, u, lv, tol, gate,
-                               state, ctypes.c_int(u.device.index),
+                               state, coef, ctypes.c_int(u.device.index),
                                ctypes.c_void_p(stream.cuda_stream))
         if timed:
             ev[1].record(stream)
@@ -866,10 +1035,11 @@ def _launch_kernel(plan, u, lv, tol, gate, state):
     return result
 
 
-def host_step(lib, plan, u, lv, tol, gate, state):
+def host_step(lib, plan, u, lv, tol, gate, state, coef=None):
     """The kernel's own step compiled for the host (``build.load_host``),
     lane by lane on CPU tensors: the CPU tests' view of ``csrc``."""
-    return _library_call(lib.acme_fused_host, plan, u, lv, tol, gate, state)
+    return _library_call(lib.acme_fused_host, plan, u, lv, tol, gate, state,
+                         coef)
 
 
 def _state_dims(plan):
@@ -907,35 +1077,74 @@ def _sel(c, a, b):
     return torch.where(c, a, b)
 
 
-def _dot_df(coef_sp, vals, vlos=None, init=(0.0, 0.0)):
-    """Compensated dot: pre-split f64 coefficients times (hi, lo) values,
-    accumulated with error-free transforms (fused.py:965-985)."""
-    hi, lo = init
-    for idx, cs in enumerate(coef_sp):
-        if not _nz(cs):
-            continue
-        v = vals[idx]
-        if v is None:
-            continue
-        vh, vl = _split_rt(v)
+class _Env:
+    """The per-lane coefficients of one plain run: the rows of the (hi, lo)
+    tables and the Dekker splits of the hi rows, made once per run as the
+    JAX kernel makes them at its start (fused.py:925-997, :1037-1040), and
+    the coefficient arithmetic for either kind of coefficient."""
+
+    def __init__(self, nvar, ch, cl):
+        self.v = [ch[j] for j in range(nvar)]
+        self.lo = [cl[j] for j in range(nvar)]
+        self.sp = [_split_rt(v) for v in self.v]
+
+    @staticmethod
+    def czero(cf):
+        """Structural-zero test: only constants can be skipped."""
+        return (not isinstance(cf, _Var)) and cf == 0.0
+
+    def cval(self, cf):
+        """A coefficient's value: a float (constant) or the lanes' row."""
+        return self.v[cf.i] if isinstance(cf, _Var) else cf
+
+    def coef_hi_lo(self, cs):
+        """(hi, lo) initializer parts of a split coefficient."""
+        if isinstance(cs, _Var):
+            return self.v[cs.i], self.lo[cs.i]
+        return cs[0], cs[3]
+
+    def prod_coef(self, cs, v, vh, vl):
+        """Error-free coefficient * value product for either coefficient
+        kind; returns (product, error, coefficient hi)."""
+        if isinstance(cs, _Var):
+            av = self.v[cs.i]
+            ah, al = self.sp[cs.i]
+            pr = av * v
+            err = ((ah * vh - pr) + ah * vl + al * vh) + al * vl \
+                + self.lo[cs.i] * v
+            return pr, err, av
         pr, err = _prod_const(cs, v, vh, vl)
-        if vlos is not None and vlos[idx] is not None:
-            err = err + cs[0] * vlos[idx]
-        hi, e2 = _two_sum(hi, pr)
-        lo = lo + (err + e2)
-    return hi, lo
+        return pr, err, cs[0]
 
+    def dot_df(self, coef_sp, vals, vlos=None, init=(0.0, 0.0)):
+        """Compensated dot: float64 coefficients (pre-split constants or
+        per-lane table entries) times (hi, lo) values, accumulated with
+        error-free transforms (fused.py:965-985)."""
+        hi, lo = init
+        for idx, cs in enumerate(coef_sp):
+            if not _nz(cs):
+                continue
+            v = vals[idx]
+            if v is None:
+                continue
+            vh, vl = _split_rt(v)
+            pr, err, c0 = self.prod_coef(cs, v, vh, vl)
+            if vlos is not None and vlos[idx] is not None:
+                err = err + c0 * vlos[idx]
+            hi, e2 = _two_sum(hi, pr)
+            lo = lo + (err + e2)
+        return hi, lo
 
-def _dotv(coeffs, vecs, init=None):
-    """sum_j coeffs[j] * vecs[j], structural zeros skipped
-    (fused.py:987-997)."""
-    acc = init
-    for cf, v in zip(coeffs, vecs):
-        if cf == 0.0 or v is None:
-            continue
-        term = cf * v
-        acc = term if acc is None else acc + term
-    return acc
+    def dotv(self, coeffs, vecs, init=None):
+        """sum_j coeffs[j] * vecs[j], structural zeros skipped
+        (fused.py:987-997)."""
+        acc = init
+        for cf, v in zip(coeffs, vecs):
+            if self.czero(cf) or v is None:
+                continue
+            term = self.cval(cf) * v
+            acc = term if acc is None else acc + term
+        return acc
 
 
 def _full(v, like):
@@ -946,8 +1155,8 @@ class _SubSolver:
     """One subsystem's per-sample solve for all lanes (the body of the JAX
     kernel's subsystem loop, fused.py:1072-2266), with per-lane loops."""
 
-    def __init__(self, plan, s, ksub, lanes_like, tol, gate):
-        self.plan, self.s = plan, s
+    def __init__(self, plan, s, ksub, lanes_like, tol, gate, env):
+        self.plan, self.s, self.env = plan, s, env
         nsub = plan.nsub
         self.ltol = tol[ksub]
         self.lgate = gate[ksub]
@@ -965,14 +1174,14 @@ class _SubSolver:
 
     # eval_at (fused.py:1174-1320)
     def eval_at(self, z, cmode, stats=True, pf=None, want_dfsys=False):
-        s = self.s
+        s, env = self.s, self.env
         nn, nq = s["nn"], s["nq"]
         like = self.like
         q_lo = None
         if pf is not None:
             q = []
             for ci in range(nq):
-                acc = _dotv(s["fq"][ci], z)
+                acc = env.dotv(s["fq"][ci], z)
                 q.append(_full(pf[ci] if acc is None else acc + pf[ci], like))
         elif cmode:
             z_sp = [_split_rt(zz) for zz in z]
@@ -983,7 +1192,7 @@ class _SubSolver:
                     cs = s["fq_sp"][ci][mi]
                     if not _nz(cs):
                         continue
-                    pr, err = _prod_const(cs, z[mi], *z_sp[mi])
+                    pr, err, _ = env.prod_coef(cs, z[mi], *z_sp[mi])
                     hi, e2 = _two_sum(hi, pr)
                     lo = lo + (err + e2)
                 q.append(hi)
@@ -991,7 +1200,7 @@ class _SubSolver:
         else:
             q = []
             for ci in range(nq):
-                acc = _dotv(s["fq"][ci], z)
+                acc = env.dotv(s["fq"][ci], z)
                 q.append(self.pfull[ci] if acc is None
                          else acc + self.pfull[ci])
         qv = torch.stack(q)
@@ -1018,9 +1227,9 @@ class _SubSolver:
                 acc = None
                 for ci in range(nq):
                     cf = s["fq"][ci][bi]
-                    if cf == 0.0:
+                    if env.czero(cf):
                         continue
-                    term = Jq[ai, ci] * cf
+                    term = Jq[ai, ci] * env.cval(cf)
                     acc = term if acc is None else acc + term
                 J[ai][bi] = acc if acc is not None else torch.zeros_like(like)
         dfsys = None
@@ -1031,9 +1240,9 @@ class _SubSolver:
                     acc = None
                     for ci in range(nq):
                         cf = s["fq"][ci][bi]
-                        if cf == 0.0:
+                        if env.czero(cf):
                             continue
-                        term = Jq_df[ai, ci] * cf
+                        term = Jq_df[ai, ci] * env.cval(cf)
                         acc = term if acc is None else acc + term
                     Jd[ai][bi] = acc if acc is not None \
                         else dfm.DF(torch.zeros_like(like))
@@ -1121,8 +1330,8 @@ class _SubSolver:
                     * (self.p[i2] - wp[s["poff"] + i2]) for i2 in range(np_)]
             pf = []
             for ci in range(nq):
-                acc = _dotv(s["pexp"][ci], pmix)
-                base = s["q0"][ci]
+                acc = self.env.dotv(s["pexp"][ci], pmix)
+                base = self.env.cval(s["q0"][ci])
                 pf.append(base if acc is None else acc + base)
             res, J, _, resmax, scale, _ = self.eval_at(z_h, False, pf=pf)
             gate_eff = _clip(4.0e-6 * scale, self.lgate, 1e4 * self.lgate)
@@ -1206,9 +1415,9 @@ class _SubSolver:
                     acc = None
                     for ci in range(nq):
                         cf = s["pexp"][ci][bi]
-                        if cf == 0.0:
+                        if self.env.czero(cf):
                             continue
-                        term = Jq[ai, ci] * cf
+                        term = Jq[ai, ci] * self.env.cval(cf)
                         acc = term if acc is None else acc + term
                     col.append(acc if acc is not None
                                else torch.zeros_like(self.like))
@@ -1365,14 +1574,13 @@ class _SubSolver:
         p_sp = [_split_rt(pi) for pi in p]
         self.pfull, self.pfull_lo = [], []
         for ci in range(nq):
-            cs0 = s["q0_sp"][ci]
-            hi = torch.full_like(self.like, cs0[0])
-            lo = torch.full_like(self.like, cs0[3])
+            hi, lo = (_full(v, self.like)
+                      for v in self.env.coef_hi_lo(s["q0_sp"][ci]))
             for i in range(np_):
                 cs = s["pexp_sp"][ci][i]
                 if not _nz(cs):
                     continue
-                pr, err = _prod_const(cs, p[i], *p_sp[i])
+                pr, err, _ = self.env.prod_coef(cs, p[i], *p_sp[i])
                 hi, e2 = _two_sum(hi, pr)
                 lo = lo + (err + e2)
             self.pfull.append(hi)
@@ -1431,12 +1639,13 @@ class _SubSolver:
                 dz_n)
 
 
-def plain_run(plan, u, lv, tol, gate, state):
+def plain_run(plan, u, lv, tol, gate, state, coef=None):
     """The plain torch version of the kernel: same inputs and outputs as
     :func:`fused_step`, vectorised over lanes, per-lane loop semantics."""
     T = u.shape[0]
     L = lv.shape[1]
     nsub = plan.nsub
+    env = _Env(plan.nvar, *_coef_pair(plan, coef, lv))
     st = {k: state[k].clone() for k in STATE_KEYS}
     x = [st["x"][i] for i in range(plan.nx)]
     xlo = [st["xlo"][i] for i in range(plan.nx)]
@@ -1453,7 +1662,7 @@ def plain_run(plan, u, lv, tol, gate, state):
     floored = torch.zeros(L, dtype=torch.int32, device=u.device)
     iters = torch.zeros((max(nsub, 1), L), dtype=torch.int32,
                         device=u.device)
-    solvers = [_SubSolver(plan, s, k, like, tol, gate)
+    solvers = [_SubSolver(plan, s, k, like, tol, gate, env)
                for k, s in enumerate(plan.subs)]
     for t in range(T):
         u_full = [None] * plan.nu
@@ -1469,10 +1678,10 @@ def plain_run(plan, u, lv, tol, gate, state):
             p = []
             for i in range(s["np"]):
                 if s["p_rows"][i]:
-                    hi, lo = _dot_df(s["dq_sp"][i], x, xlo)
-                    hi, lo = _dot_df(s["eq_sp"][i], u_full, init=(hi, lo))
-                    hi, lo = _dot_df(s["fqprev_sp"][i], z_all, z_lo_all,
-                                     init=(hi, lo))
+                    hi, lo = env.dot_df(s["dq_sp"][i], x, xlo)
+                    hi, lo = env.dot_df(s["eq_sp"][i], u_full, init=(hi, lo))
+                    hi, lo = env.dot_df(s["fqprev_sp"][i], z_all, z_lo_all,
+                                        init=(hi, lo))
                     p.append(_full(hi + lo, like))
                 else:
                     p.append(torch.zeros_like(like))
@@ -1490,17 +1699,19 @@ def plain_run(plan, u, lv, tol, gate, state):
             any_floor = floor_k if any_floor is None else any_floor | floor_k
         # EFT output row and state update (fused.py:2268-2342)
         for oi in range(plan.ny):
-            cs = plan.y0_sp[oi]
-            hi, lo = _dot_df(plan.dy_sp[oi], x, xlo, init=(cs[0], cs[3]))
-            hi, lo = _dot_df(plan.ey_sp[oi], u_full, init=(hi, lo))
-            hi, lo = _dot_df(plan.fy_sp[oi], z_all, z_lo_all, init=(hi, lo))
+            hi, lo = env.dot_df(plan.dy_sp[oi], x, xlo,
+                                init=env.coef_hi_lo(plan.y0_sp[oi]))
+            hi, lo = env.dot_df(plan.ey_sp[oi], u_full, init=(hi, lo))
+            hi, lo = env.dot_df(plan.fy_sp[oi], z_all, z_lo_all,
+                                init=(hi, lo))
             ys[t, oi] = _full(hi + lo, like)
         x_new = []
         for xi in range(plan.nx):
-            cs = plan.x0_sp[xi]
-            hi, lo = _dot_df(plan.a_sp[xi], x, xlo, init=(cs[0], cs[3]))
-            hi, lo = _dot_df(plan.b_sp[xi], u_full, init=(hi, lo))
-            hi, lo = _dot_df(plan.c_sp[xi], z_all, z_lo_all, init=(hi, lo))
+            hi, lo = env.dot_df(plan.a_sp[xi], x, xlo,
+                                init=env.coef_hi_lo(plan.x0_sp[xi]))
+            hi, lo = env.dot_df(plan.b_sp[xi], u_full, init=(hi, lo))
+            hi, lo = env.dot_df(plan.c_sp[xi], z_all, z_lo_all,
+                                init=(hi, lo))
             x_new.append(_two_sum(_full(hi, like), _full(lo, like)))
         x = [h for h, _ in x_new]
         xlo = [lo_ for _, lo_ in x_new]

@@ -4,18 +4,26 @@
 
 Phases, each printed with its seconds:
   1. the device (name, power limit, torch / CUDA / nvcc versions);
-  2. the nvcc builds of the fused kernel, all started together: one per
-     model below, and for the level sweep's model two (the production
-     configuration and the power-up sibling's);
-  3. the models, built by the port's own compiler: the main path's (the
+  3. the models, built by the port's own compiler, the exact part of every
+     Super Over build in a pool of worker processes: the main path's (the
      chain-decomposed Super Over with drive and tone as per-lane inputs,
-     its runner preparation and the committed steady seeds) and the level
-     sweep's (the same circuit with fixed pots, its input scaled per lane);
+     its runner preparation and the committed steady seeds), the level
+     sweep's (the same circuit with fixed pots, its input scaled per
+     lane), the presets sweep's (eight of those at other pot positions,
+     the per-lane models of ONE runner: every coefficient that differs
+     between them reaches the kernel in two per-lane tables) and the
+     un-decomposed Super Over (one 7x7 subsystem);
+  2. the nvcc builds of the fused kernel, all started together: the
+     clipper's, birdie's, the main path's, and for each of the three
+     level-swept models two (the production configuration and the
+     power-up sibling's); meanwhile, in worker processes on the host, the
+     presets path's float64 references;
   4. kernel against its plain torch version on the card: the diode
-     clipper (128 lanes x 1024 samples), birdie with its volume pot as a
-     lane input (128 x 256), the Super Over (4096 x 64 from the seeds),
-     and the level model's power-up build (4096 x 64 from cold) and
-     production build (4096 x 64 from the state the power-up build left);
+     clipper (128 lanes x 256 samples), birdie with its volume pot as a
+     lane input (128 x 64), the Super Over (4096 x 64 from the seeds),
+     and for the level, presets and full models the power-up build
+     (4096 x 64 from cold) and the production build (4096 x 64 from the
+     state the power-up build left);
   5. the main path: 4096 lanes x 44100 samples from the seeds, chained
      for seven windows as the JAX package's bench chains them, each timed
      whole and kernel alone; window 1 is scored against the committed
@@ -26,9 +34,21 @@ Phases, each printed with its seconds:
      windows; window 1 is scored against the "_pw" references and window 4
      against the "_st" ones; then the power-up build's launch alone
      again at the path's shape (4096 x 4096), for its own time and bound;
+  5c. the presets path: 8 presets x 512 input levels (lane i runs model
+     i % 8), the level path's input and protocol; no committed reference
+     covers these circuits, so 16 lanes (each model's lowest and highest
+     level) are scored against the port's float64 host runtime over the
+     first 5120 samples of window 1: the power-up build's 4096 and the
+     production build's first 1024, so the score crosses the handoff and
+     holds the build that reads the per-lane tables in the production
+     step;
+  5d. the full path: the un-decomposed Super Over at 4096 input levels,
+     the level path's protocol, scored on the 8 lanes the committed
+     "scan2_level_full" references cover (windows 1 and 4);
   6. the kernel launch counts of each path, by build (library).
-The "kernels" line has one entry per build: the main path's, and the
-level path's production and power-up builds.
+The "kernels" line has one entry per build of the four paths: the main
+path's, and the production and power-up builds of the level, presets and
+full paths.
 Each kernel's bound (the least time the card could take for the same
 work) is the larger of its float operations, counted from the generated
 code (``ops.emit.op_counts``) times the evaluations per lane-sample the
@@ -40,12 +60,15 @@ nonzero before it.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
@@ -69,6 +92,15 @@ PARITY_MEDIAN_DB = -95.0
 # the level sweep: the JAX package's record on the same 16 lanes is -70.9
 # (window 1) and -71.6 dB (steady window) worst
 LEVEL_PARITY_WORST_DB = -65.0
+# the presets sweep's models are the level sweep's at other pot positions:
+# its gate, against the float64 host runtime over the first samples: all
+# of the power-up build's span (powerup_samples) and the first 1024 of the
+# production build's
+PRESETS_PARITY_WORST_DB = -65.0
+POWERUP_SAMPLES = 4096
+PRESETS_REF_SAMPLES = POWERUP_SAMPLES + 1024
+# the un-decomposed Super Over: the JAX package has no fused number for it
+FULL_PARITY_WORST_DB = -65.0
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): float32
 # outside the tensor cores, and device memory
 PEAK_FP32 = 67e12
@@ -115,6 +147,7 @@ def bound(plan, L, T, evals, F, op_counts):
     nu_l = max(len(plan.lane_idx) + len(plan.scale_idx), 1)
     nbytes = 4 * (T * max(len(plan.time_idx), 1)      # u
                   + L * (nu_l + 4 * nsub)             # lanes, tol, gates
+                  + 2 * L * max(plan.nvar, 1)         # coefficient tables
                   + 2 * L * nstate                    # state in and out
                   + T * max(plan.ny, 1) * L           # y
                   + L * (2 + nsub))                   # fails, floored, iters
@@ -128,15 +161,18 @@ def compare_case(name, fr, u_time, lane_values, state, torch, F, op_counts):
     CUDA tensors; returns (a dict of the numbers it printed, the kernel's
     state)."""
     u, lv, tol, gate = fr.prepare_inputs(u_time, lane_values)
+    coef = fr._coef_tables(lv.shape[1])
     state = {k: v.contiguous() for k, v in state.items()}
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     # warm-up launch: the first launch of a library also loads its module
-    F.fused_step(fr.plan, u, lv, tol, gate, state)
+    F.fused_step(fr.plan, u, lv, tol, gate, state, coef)
     torch.cuda.synchronize()
     ev[0].record()
-    yk, stk, fk, ik, flk = F.fused_step(fr.plan, u, lv, tol, gate, state)
+    yk, stk, fk, ik, flk = F.fused_step(fr.plan, u, lv, tol, gate, state,
+                                        coef)
     ev[1].record()
-    yp, stp, fp, ip, flp = F.plain_run(fr.plan, u, lv, tol, gate, state)
+    yp, stp, fp, ip, flp = F.plain_run(fr.plan, u, lv, tol, gate, state,
+                                       coef)
     ev[2].record()
     torch.cuda.synchronize()
     ms_k = ev[0].elapsed_time(ev[1])
@@ -162,8 +198,11 @@ def compare_case(name, fr, u_time, lane_values, state, torch, F, op_counts):
     T, L = u.shape[0], lv.shape[1]
     evals = ik.double().mean(dim=1).cpu().numpy() / T
     b_ms, b_by = bound(fr.plan, L, T, evals, F, op_counts)
+    same = bool(torch.equal(yk, yp)) and all(
+        bool(torch.equal(stk[k], stp[k])) for k in stp)
     log(f"  {name}: L={L} T={T}  kernel {ms_k:.3f} ms, "
-        f"plain {ms_p:.3f} ms, bound {b_ms:.4f} ms ({b_by})  y worst lane "
+        f"plain {ms_p:.3f} ms, bound {b_ms:.4f} ms ({b_by})  "
+        f"{'bit-identical' if same else 'NOT bit-identical'}  y worst lane "
         f"{worst}: {db[worst]:.1f} dB (median {np.median(db):.1f}), "
         f"max|dy| {max_abs:.3e}  fails {int(fk.sum())}/{int(fp.sum())} "
         f"floored {int(flk.sum())}/{int(flp.sum())}  evals/lane-sample "
@@ -188,7 +227,8 @@ def drive_path(label, fr, u, lane_values, state, windows, keep, card, torch,
     timed whole (CUDA events around the call) and each kernel launch
     alone (``fused.LAUNCH_EVENTS``).  The launch counts are set to 0 just
     before and read just after.  Returns (the first and the last window's
-    outputs on the lanes ``keep``, the launch counts by build)."""
+    outputs on the lanes ``keep``, the launch counts by build, and each
+    window's (fails, floored) summed over the lanes)."""
     T = u.shape[1]
     L = lane_values.shape[0]
     F.LAUNCHES.clear()
@@ -233,7 +273,44 @@ def drive_path(label, fr, u, lane_values, state, windows, keep, card, torch,
             f"evals/lane-sample {its.sum(1).mean() / T:.3f} | bound "
             f"{b_ms:.3f} ms ({b_by}, production build's counts) | card: "
             f"{card}")
-    return y_first, y_last, launches
+    counts = [(int(info.fails.sum()), int(info.floored.sum()))
+              for _, info, _ in rows]
+    return y_first, y_last, launches, counts
+
+
+def steady_windows_clean(label, counts):
+    """No fails and no floored samples after the power-up window."""
+    if any(c != (0, 0) for c in counts[1:]):
+        raise SmokeFailure(f"{label}: (fails, floored) by window {counts}, "
+                           "expected (0, 0) after window 1")
+
+
+def powerup_alone(label, pr, u, lane_values, card, torch, F, op_counts):
+    """A cold path's power-up launch once more, alone (the same cold start
+    and input, so the same work): its own kernel time and evaluations,
+    hence its own bound."""
+    W, L = u.shape[1], lane_values.shape[0]
+    F.LAUNCH_EVENTS = []
+    _, _, info = pr.run(u, lane_values, check=True)
+    torch.cuda.synchronize()
+    (e0, e1), = F.LAUNCH_EVENTS
+    F.LAUNCH_EVENTS = None
+    evals = info.iters.double().mean(dim=0).cpu().numpy() / W
+    b_ms, b_by = bound(pr.plan, L, W, evals, F, op_counts)
+    log(f"[{label}] power-up launch alone: {L} lanes x {W} samples, kernel "
+        f"{e0.elapsed_time(e1):.1f} ms, evals/lane-sample "
+        f"{evals.sum():.3f}, bound {b_ms:.3f} ms ({b_by}) | card: {card}")
+
+
+def cold_path(label, fr, u, lane_values, keep, card, torch, F, op_counts):
+    """The bench's protocol for a sweep from cold: a power-up window, one
+    warm-up window, two timed chained windows; then the power-up launch
+    alone."""
+    out = drive_path(label, fr, u, lane_values, None, LEVEL_WINDOWS, keep,
+                     card, torch, F, op_counts)
+    powerup_alone(label, fr._powerup_runner(), u[:, :fr.powerup_samples],
+                  lane_values, card, torch, F, op_counts)
+    return out
 
 
 def score(label, lanes, descs, y_first, y_last, keys, last_window,
@@ -267,6 +344,72 @@ def score(label, lanes, descs, y_first, y_last, keys, last_window,
     return out
 
 
+def host_reference(spec, inputs):
+    """One preset's references: the Super Over of ``spec``, built here (a
+    model does not pickle; the build is deterministic), run from cold by
+    the float64 host runtime on each of ``inputs``, a fresh copy each."""
+    from acme_tpu_torch import runtime
+    from acme_tpu_torch.models import superover_model
+    model = superover_model(**spec)
+    return [runtime.run(copy.deepcopy(model), u)[0] for u in inputs]
+
+
+def host_references(pool, specs, levels, lanes, u):
+    """The presets path's references, computed in ``pool``, one task per
+    preset: for each lane in ``lanes`` its model (``specs[i % len(specs)]``)
+    run from cold on ``level x u``."""
+    by_model = {}
+    for i in lanes:
+        by_model.setdefault(i % len(specs), []).append(i)
+    futs = {k: pool.submit(host_reference, specs[k],
+                           [levels[i] * u for i in mine])
+            for k, mine in by_model.items()}
+    refs = {}
+    for k, mine in by_model.items():
+        refs.update(zip(mine, futs[k].result()))
+    return [refs[i] for i in lanes]
+
+
+def score_presets(label, lanes, levels, drive, tone, y_first, refs, split,
+                  worst_db):
+    """Each lane's max error relative to its reference's peak, in dB, over
+    the reference's samples before ``split`` (the power-up build's) and
+    from it on (the production build's); the worst of each held to
+    ``worst_db``."""
+    spans = {"power-up build": slice(0, split),
+             "production build": slice(split, None)}
+    dbs = {name: [] for name in spans}
+    for j, i in enumerate(lanes):
+        n = len(refs[j])
+        peak = max(float(np.abs(refs[j]).max()), 1e-12)
+        err = np.abs(y_first[j][:n] - refs[j])
+        for name, sl in spans.items():
+            dbs[name].append(20 * np.log10(float(err[sl].max()) / peak
+                                           + 1e-300))
+        log(f"    parity lane {i} (drive {drive[i]:.2f}, tone {tone[i]:.2f}, "
+            f"level {levels[i]:.4f}): window 1, samples 0-{split - 1} "
+            f"{dbs['power-up build'][-1]:.1f} dB, {split}-{n - 1} "
+            f"{dbs['production build'][-1]:.1f} dB of peak {peak:.4f}")
+    bad = []
+    for name, d in dbs.items():
+        worst, med = max(d), float(np.median(d))
+        log(f"[{label}] parity window 1 ({name}'s samples) vs the float64 "
+            f"host runtime: worst {worst:.1f} dB, median {med:.1f} dB over "
+            f"{len(d)} lanes")
+        if worst > worst_db:
+            bad.append(f"{name} worst {worst:.1f} dB")
+    if bad:
+        raise SmokeFailure(f"{label}: parity outside {worst_db} dB: {bad}")
+
+
+def describe(name, m, fr, secs):
+    subs = range(m.nsubsystems)
+    log(f"[3 model] {name} nx={m.nx} nn={[m.nn(k) for k in subs]} "
+        f"np={[m.np(k) for k in subs]} nq={[m.nq(k) for k in subs]} "
+        f"nvar={fr.nvar} runner {secs:.1f}s; sub_fragile={fr.sub_fragile} "
+        f"cond_eq={[float(f'{c:.3g}') for c in fr.sub_cond_eq]}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -296,8 +439,13 @@ def main():
 
     # 3 (prepared first: the builds need the prepared runners)
     t0 = time.time()
-    m_so = S.build_model("pots", "chain", FS)
-    t_model = time.time() - t0
+    pre_specs = [S.preset_spec(d, t, FS) for d, t in S.PRESETS]
+    m_so, m_lvl, m_full, *m_pre = S.build_models(
+        [S.model_spec("pots", "chain", FS), S.model_spec("level", "chain", FS),
+         S.model_spec("level", "full", FS)] + pre_specs)
+    log(f"[3 model] {3 + len(m_pre)} Super Over models built in "
+        f"{time.time() - t0:.1f}s (worker processes)")
+    t0 = time.time()
     fr_so = FusedRunner(m_so, lane_input_idx=(1, 2), device=dev,
                         powerup="steady")
     fr_clip = FusedRunner(diodeclipper_model(), device=dev)
@@ -305,72 +453,100 @@ def main():
     _, drive, tone, lane_values, _ = S.lane_grid("pots", L_MAIN)
     seed = load_steady_seed(os.path.join(HERE, ".steadyseed_cache.npz"),
                             SEED_TAG, fr_so)
-    log(f"[3 model] Super Over nx={m_so.nx} nn={[m_so.nn(k) for k in range(m_so.nsubsystems)]} "
-        f"np={[m_so.np(k) for k in range(m_so.nsubsystems)]} build "
-        f"{t_model:.1f}s, runners + seeds {time.time() - t0 - t_model:.1f}s; "
-        f"sub_fragile={fr_so.sub_fragile} "
-        f"cond_eq={[float(f'{c:.3g}') for c in fr_so.sub_cond_eq]}")
+    describe("Super Over (pots, + clipper, birdie, seeds)", m_so, fr_so,
+             time.time() - t0)
+    cold = dict(device=dev, powerup="safe", powerup_samples=POWERUP_SAMPLES)
     t0 = time.time()
-    m_lvl = S.build_model("level", "chain", FS)
-    t_model = time.time() - t0
     levels, _, _, lv_level, lv_cfg = S.lane_grid("level", L_MAIN)
-    fr_lvl = FusedRunner(m_lvl, device=dev, powerup="safe",
-                         powerup_samples=4096, **lv_cfg)
-    pr_lvl = fr_lvl._powerup_runner()
-    subs = range(m_lvl.nsubsystems)
-    log(f"[3 model] level Super Over nx={m_lvl.nx} "
-        f"nn={[m_lvl.nn(k) for k in subs]} "
-        f"np={[m_lvl.np(k) for k in subs]} build "
-        f"{t_model:.1f}s, runners {time.time() - t0 - t_model:.1f}s; "
-        f"sub_fragile={fr_lvl.sub_fragile} "
-        f"cond_eq={[float(f'{c:.3g}') for c in fr_lvl.sub_cond_eq]}")
+    fr_lvl = FusedRunner(m_lvl, **cold, **lv_cfg)
+    describe("level Super Over", m_lvl, fr_lvl, time.time() - t0)
+    t0 = time.time()
+    pre_levels, pre_drive, pre_tone, lv_pre, pre_cfg = S.lane_grid(
+        "presets", L_MAIN)
+    fr_pre = FusedRunner(m_pre, **cold, **pre_cfg)
+    describe(f"{len(m_pre)} presets {S.PRESETS}", m_pre[0], fr_pre,
+             time.time() - t0)
+    if fr_pre.nvar == 0:
+        raise SmokeFailure("the presets share every coefficient: the "
+                           "per-lane tables would not be read")
+    t0 = time.time()
+    fr_full = FusedRunner(m_full, **cold, **lv_cfg)
+    describe("un-decomposed Super Over (full)", m_full, fr_full,
+             time.time() - t0)
 
     t0 = time.time()
-    runners = {"clipper": fr_clip, "birdie": fr_bird, "superover": fr_so,
-               "level": fr_lvl, "level powerup": pr_lvl}
-    with ThreadPoolExecutor(len(runners)) as ex:
+    runners = {"clipper": fr_clip, "birdie": fr_bird, "superover": fr_so}
+    for n, fr in (("level", fr_lvl), ("presets", fr_pre), ("full", fr_full)):
+        runners[n] = fr
+        runners[n + " powerup"] = fr._powerup_runner()
+    T = FS
+    u = (0.2 * np.sin(2 * np.pi * 1000 / FS * np.arange(T)))[None, :]
+    # each preset's lowest-level and highest-level lane
+    n_pre = len(m_pre)
+    pre_lanes = list(range(n_pre)) + list(range(L_MAIN - n_pre, L_MAIN))
+    # spawned, not forked: this process holds a CUDA context
+    with ThreadPoolExecutor(len(runners)) as ex, ProcessPoolExecutor(
+            n_pre, mp_context=multiprocessing.get_context("spawn")) as pool:
         futs = {n: ex.submit(B.compile_library, r.plan)
                 for n, r in runners.items()}
+        # while nvcc runs: the presets path's float64 references
+        t1 = time.time()
+        pre_refs = host_references(pool, pre_specs, pre_levels, pre_lanes,
+                                   u[:, :PRESETS_REF_SAMPLES])
+        t_refs = time.time() - t1
         libs = {n: f.result() for n, f in futs.items()}
     for n, path in libs.items():
         secs, out = B.LAST_BUILD.get(path, (0.0, "(cached)"))
+        # the entry's registers and frame, and any function that spills
         regs = [ln.strip() for ln in out.splitlines()
-                if "acme_fused_kernel" in ln or "Used" in ln
-                or "stack frame" in ln][:6]
+                if "Used" in ln or ("stack frame" in ln and not
+                                    ln.strip().startswith("0 bytes stack "
+                                                          "frame, 0 bytes"))]
+        # without recursion no call chain needs more stack than the sum
+        # of every function's frame: it must fit the limit the launch sets
+        frames = sum(int(b) for b in re.findall(r"(\d+) bytes stack frame",
+                                                out))
         log(f"[2 build] {n} ({runners[n].plan.kernel_name}): nvcc "
-            f"{secs:.1f}s -> {os.path.basename(path)}")
+            f"{secs:.1f}s -> {os.path.basename(path)}; stack frames sum to "
+            f"{frames} of the launch's {B.STACK_BYTES} bytes")
         for ln in regs:
             log(f"    ptxas: {ln}")
+        if frames > B.STACK_BYTES:
+            raise SmokeFailure(f"{n}: ptxas stack frames sum to {frames} "
+                               f"bytes, over the launch's {B.STACK_BYTES}")
         B.load_kernel(runners[n].plan)
-    log(f"[2 build] total {time.time() - t0:.1f}s (parallel)")
+    log(f"[2 build] {len(libs)} builds, total {time.time() - t0:.1f}s "
+        f"(parallel; beside them {len(pre_lanes)} host references x "
+        f"{PRESETS_REF_SAMPLES} samples in {t_refs:.1f}s)")
 
     t0 = time.time()
     log("[4 kernel vs plain] (card: " + card + ")")
-    T = 1024
-    u = (1.0 * np.sin(2 * np.pi * 1000 / FS * np.arange(T)))[None, :]
-    compare_case("clipper", fr_clip, u, np.zeros((128, 0)),
+    Tc = 256
+    uc = (1.0 * np.sin(2 * np.pi * 1000 / FS * np.arange(Tc)))[None, :]
+    compare_case("clipper", fr_clip, uc, np.zeros((128, 0)),
                  fr_clip.initial_state(128), torch, F, op_counts)
-    T = 256
-    u = (0.3 * np.sin(2 * np.pi * 1000 / FS * np.arange(T)))[None, :]
+    Tc = 64
+    uc = (0.3 * np.sin(2 * np.pi * 1000 / FS * np.arange(Tc)))[None, :]
     vols = np.linspace(0.05, 0.95, 128)[:, None]
-    compare_case("birdie", fr_bird, u, vols, fr_bird.initial_state(128),
+    compare_case("birdie", fr_bird, uc, vols, fr_bird.initial_state(128),
                  torch, F, op_counts)
-    T = 64
-    u = (0.2 * np.sin(2 * np.pi * 1000 / FS * np.arange(2 * T)))[None, :]
-    so, _ = compare_case("superover", fr_so, u[:, :T], lane_values, seed,
-                         torch, F, op_counts)
-    pw, st_pw = compare_case("level powerup", pr_lvl, u[:, :T], lv_level,
-                             pr_lvl.initial_state(L_MAIN), torch, F,
-                             op_counts)
-    lvl, _ = compare_case("level", fr_lvl, u[:, T:], lv_level, st_pw, torch,
-                          F, op_counts)
+    checks = {}
+    checks["superover"], _ = compare_case(
+        "superover", fr_so, u[:, :Tc], lane_values, seed, torch, F,
+        op_counts)
+    for n, fr, lv in (("level", fr_lvl, lv_level), ("presets", fr_pre, lv_pre),
+                      ("full", fr_full, lv_level)):
+        pr = runners[n + " powerup"]
+        checks[n + " powerup"], st_pw = compare_case(
+            n + " powerup", pr, u[:, :Tc], lv, pr.initial_state(L_MAIN),
+            torch, F, op_counts)
+        checks[n], _ = compare_case(n, fr, u[:, Tc:2 * Tc], lv, st_pw, torch,
+                                    F, op_counts)
     log(f"[4 kernel vs plain] {time.time() - t0:.1f}s")
 
     t0 = time.time()
-    T = FS
-    u = (0.2 * np.sin(2 * np.pi * 1000 / FS * np.arange(T)))[None, :]
     lanes = S.select_parity_lanes(L_MAIN, 16, S.stress_lanes("pots", L_MAIN))
-    y_pw, y_st, main_launches = drive_path(
+    y_pw, y_st, main_launches, _ = drive_path(
         "5 main path", fr_so, u, lane_values, seed, WINDOWS, lanes, card,
         torch, F, op_counts)
     score("5 main path", lanes,
@@ -384,59 +560,76 @@ def main():
     t0 = time.time()
     lanes = S.select_parity_lanes(L_MAIN, 16, S.stress_lanes("level",
                                                              L_MAIN))
-    y_pw, y_st, level_launches = drive_path(
-        "5b level path", fr_lvl, u, lv_level, None, LEVEL_WINDOWS, lanes,
-        card, torch, F, op_counts)
+    y_pw, y_st, level_launches, counts = cold_path(
+        "5b level path", fr_lvl, u, lv_level, lanes, card, torch, F,
+        op_counts)
+    steady_windows_clean("5b level path", counts)
     score("5b level path", lanes, [f"level {levels[i]:.4f}" for i in lanes],
           y_pw, y_st,
           [S.ref_key("level", "chain", FS, T, LEVEL_REPS, levels[i], 1.0,
                      1.0) for i in lanes],
           LEVEL_WINDOWS, LEVEL_PARITY_WORST_DB)
-    # window 1's power-up launch once more, alone (the same cold start and
-    # input, so the same work): its own kernel time and evaluations, hence
-    # its own bound
-    W = fr_lvl.powerup_samples
-    F.LAUNCH_EVENTS = []
-    _, _, info = pr_lvl.run(u[:, :W], lv_level, check=True)
-    torch.cuda.synchronize()
-    (e0, e1), = F.LAUNCH_EVENTS
-    F.LAUNCH_EVENTS = None
-    evals = info.iters.double().mean(dim=0).cpu().numpy() / W
-    b_ms, b_by = bound(pr_lvl.plan, L_MAIN, W, evals, F, op_counts)
-    log(f"[5b level path] power-up launch alone: {L_MAIN} lanes x {W} "
-        f"samples, kernel {e0.elapsed_time(e1):.1f} ms, evals/lane-sample "
-        f"{evals.sum():.3f}, bound {b_ms:.3f} ms ({b_by}) | card: {card}")
     log(f"[5b level path] {time.time() - t0:.1f}s")
 
-    # one entry per build: (name, runner, its phase-4 check)
-    builds = [("fused_sweep (Super Over pots, main path)", fr_so, so),
-              ("fused_sweep (level Super Over, level path)", fr_lvl, lvl),
-              ("fused_sweep_powerup (level Super Over, level path)", pr_lvl,
-               pw)]
-    by_name = lambda launches: {n: launches.get(r.plan.cuda_name, 0)
-                                for n, r, _ in builds}
-    log(f"[6 launches] main path {by_name(main_launches)}; level path "
-        f"{by_name(level_launches)}")
-    # one launch per window; the level path's window 1 adds the power-up
-    libs = [r.plan.cuda_name for _, r, _ in builds]
-    if len(set(libs)) != 3:
-        raise SmokeFailure(f"the three builds share a library: {libs}")
-    if main_launches != {libs[0]: WINDOWS}:
-        raise SmokeFailure(f"main path launches {main_launches}, expected "
-                           f"{WINDOWS} of {libs[0]}")
-    if level_launches != {libs[1]: LEVEL_WINDOWS, libs[2]: 1}:
-        raise SmokeFailure(f"level path launches {level_launches}, "
-                           f"expected {LEVEL_WINDOWS} of {libs[1]} and 1 "
-                           f"of {libs[2]}")
+    t0 = time.time()
+    y_pw, _, presets_launches, counts = cold_path(
+        "5c presets path", fr_pre, u, lv_pre, pre_lanes, card, torch, F,
+        op_counts)
+    steady_windows_clean("5c presets path", counts)
+    score_presets("5c presets path", pre_lanes, pre_levels, pre_drive,
+                  pre_tone, y_pw, pre_refs, POWERUP_SAMPLES,
+                  PRESETS_PARITY_WORST_DB)
+    log(f"[5c presets path] {time.time() - t0:.1f}s")
+
+    t0 = time.time()
+    lanes = S.select_parity_lanes(L_MAIN, 8, [])
+    y_pw, y_st, full_launches, counts = cold_path(
+        "5d full path", fr_full, u, lv_level, lanes, card, torch, F,
+        op_counts)
+    log(f"[5d full path] (fails, floored) by window: {counts}")
+    score("5d full path", lanes, [f"level {levels[i]:.4f}" for i in lanes],
+          y_pw, y_st,
+          [S.ref_key("level", "full", FS, T, LEVEL_REPS, levels[i], 1.0,
+                     1.0) for i in lanes],
+          LEVEL_WINDOWS, FULL_PARITY_WORST_DB)
+    log(f"[5d full path] {time.time() - t0:.1f}s")
+
+    # one entry per build of the four paths: (name, runner key, its path's
+    # launches and how many of them are this build's)
+    builds = [("fused_sweep (Super Over pots, main path)", "superover",
+               main_launches, WINDOWS)]
+    for n, path, launches in (("level", "level path", level_launches),
+                              ("presets", "presets path", presets_launches),
+                              ("full", "full path", full_launches)):
+        builds.append((f"fused_sweep ({n} Super Over, {path})", n, launches,
+                       LEVEL_WINDOWS))
+        builds.append((f"fused_sweep_powerup ({n} Super Over, {path})",
+                       n + " powerup", launches, 1))
+    lib_of = {key: runners[key].plan.cuda_name for _, key, _, _ in builds}
+    if len(set(lib_of.values())) != len(builds):
+        raise SmokeFailure(f"builds share a library: {lib_of}")
+    # one launch per window; a cold path's window 1 adds the power-up
+    for path, launches, keys in (
+            ("main path", main_launches, ("superover",)),
+            ("level path", level_launches, ("level", "level powerup")),
+            ("presets path", presets_launches,
+             ("presets", "presets powerup")),
+            ("full path", full_launches, ("full", "full powerup"))):
+        expected = {lib_of[k]: n for _, k, _, n in builds if k in keys}
+        log(f"[6 launches] {path}: "
+            f"{ {k: launches.get(lib_of[k], 0) for k in keys} }")
+        if launches != expected:
+            raise SmokeFailure(f"{path} launches {launches}, expected "
+                               f"{expected}")
 
     kernels = []
-    for name, r, case in builds:
+    for name, key, launches, _ in builds:
+        case = checks[key]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "acme_tpu_torch/ops/csrc/fused.cu",
             "replaces": "acme_tpu/ops/fused.py:2483",
-            "launches": (main_launches.get(r.plan.cuda_name, 0)
-                         + level_launches.get(r.plan.cuda_name, 0)),
+            "launches": launches[lib_of[key]],
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": None})

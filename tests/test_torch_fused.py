@@ -65,7 +65,7 @@ def jax_runner(model, lidx, T):
 def compare_with_jax(model, lidx, u, lv, jax_state=None):
     T = u.shape[1]
     jr = jax_runner(model, lidx, T)
-    tr = FusedRunner(copy.deepcopy(model), lane_input_idx=lidx)
+    tr = FusedRunner(copy.deepcopy(model), lane_input_idx=lidx, device="cpu")
     yj, _, ij = jr.run(u, lv, state=jax_state, check=False)
     state = None if jax_state is None else state_from_jax(jax_state)
     yt, _, it = tr.run(u, lv, state=state, check=False)
@@ -98,7 +98,7 @@ def test_birdie_matches_float64_host():
     T = 64
     u = sine(0.3, T)
     vols = np.linspace(0.05, 0.95, 128)[:, None]
-    tr = FusedRunner(M.birdie_model(), lane_input_idx=(1,))
+    tr = FusedRunner(M.birdie_model(), lane_input_idx=(1,), device="cpu")
     y, _, info = tr.run(u, vols, check=False)
     assert int(info.fails.sum()) == 0
     for lane in (0, 40, 127):
@@ -141,7 +141,8 @@ def test_superover_matches_float64_references(superover):
     sel, refs = _superover_lanes()
     assert int(0.78711 * 4096) in sel and int(0.80713 * 4096) in sel
     drive, tone, lv = _pots()
-    tr = FusedRunner(superover, lane_input_idx=(1, 2), powerup="steady")
+    tr = FusedRunner(superover, lane_input_idx=(1, 2), powerup="steady",
+                     device="cpu")
     state = load_steady_seed(SEEDS, SEED_TAG, tr, lanes=sel)
     T = 32
     y, st, info = tr.run(sine(0.2, T), lv[sel], state=state, check=False)
@@ -162,7 +163,8 @@ def test_superover_matches_float64_references(superover):
 def test_superover_matches_jax_interpret(superover):
     sel, _ = _superover_lanes()
     _, _, lv = _pots()
-    tr = FusedRunner(copy.deepcopy(superover), lane_input_idx=(1, 2))
+    tr = FusedRunner(copy.deepcopy(superover), lane_input_idx=(1, 2),
+                     device="cpu")
     state = load_steady_seed(SEEDS, SEED_TAG, tr, lanes=sel)
     jr = jax_runner(superover, (1, 2), 32)
     jr._steady_floors = tr._steady_floors
@@ -180,7 +182,7 @@ def test_lanes_are_independent():
     T = 16
     vols = np.linspace(0.05, 0.95, 128)[:, None]
     perm = np.random.default_rng(3).permutation(128)
-    tr = FusedRunner(M.birdie_model(), lane_input_idx=(1,))
+    tr = FusedRunner(M.birdie_model(), lane_input_idx=(1,), device="cpu")
     y1, s1, i1 = tr.run(sine(0.3, T), vols, check=False)
     y2, s2, i2 = tr.run(sine(0.3, T), vols[perm], check=False)
     np.testing.assert_array_equal(y1.numpy()[perm], y2.numpy())
@@ -197,7 +199,7 @@ def test_state_carries_across_packages():
     lv = np.zeros((128, 0))
     y32, _, _ = jax_runner(model, (), 32).run(u, lv, check=False)
     _, js, _ = jax_runner(model, (), 16).run(u[:, :16], lv, check=False)
-    tr = FusedRunner(copy.deepcopy(model))
+    tr = FusedRunner(copy.deepcopy(model), device="cpu")
     y2, _, _ = tr.run(u[:, 16:], lv, state=state_from_jax(js), check=False)
     db = lane_db(y2.numpy(), np.asarray(y32)[:, :, 16:])
     assert db.max() < -90.0
@@ -206,7 +208,7 @@ def test_state_carries_across_packages():
 def test_check_outputs_raises_on_nonfinite():
     """A linear model (nonlinear subsystems substitute the last good z on
     a non-finite solve, which can keep y finite)."""
-    tr = FusedRunner(M.sallenkey_model())
+    tr = FusedRunner(M.sallenkey_model(), device="cpu")
     u = sine(0.5, 16)
     u[0, 5] = np.inf
     with pytest.raises(RuntimeError, match="non-finite"):

@@ -11,8 +11,11 @@ the kernel's per-lane step lane by lane.  Against the plain torch version:
 * the whole step on the clipper, birdie (pot as a lane input) and the
   Super Over from its committed seeds, and the level sweep's two
   configurations (the power-up sibling from cold, the production runner
-  from the sibling's state) on the clipper and the level Super Over: y
-  within -90 dB of each lane's peak (the bound of the other comparisons;
+  from the sibling's state) on the clipper and the level Super Over, the
+  same two for a list of models (per-lane coefficient tables: four
+  clippers, three Super Over presets) and for the un-decomposed Super Over
+  (one 7x7 subsystem with five right-hand columns in its df elimination):
+  y within -90 dB of each lane's peak (the bound of the other comparisons;
   so far the two agree exactly), with fails and floored equal.
 
 Skipped where g++ is absent.  A kernel logic fault shows here before any
@@ -26,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import acme_tpu_torch as T
 from acme_tpu_torch import FusedRunner
 from acme_tpu_torch import models as M
 from acme_tpu_torch import sweeps as S
@@ -43,7 +47,7 @@ def host_lib(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("g++ not found")
     out = str(tmp_path_factory.mktemp("acme_build"))
-    clip = FusedRunner(M.diodeclipper_model())
+    clip = FusedRunner(M.diodeclipper_model(), device="cpu")
     return load_host(clip.plan, out), out
 
 
@@ -121,20 +125,35 @@ def test_solves_bitwise(host_lib, n, m, use_df, refine):
                 np.testing.assert_array_equal(Xh[:, k, i], X[k][i].numpy())
 
 
-def _compare(lib, fr, u_time, lane_values, state):
-    """The host build against plain_run; returns the plain version's state."""
+def _compare(lib, fr, u_time, lane_values, state, pairs=False):
+    """The host build against plain_run; returns the plain version's state.
+    ``pairs``: hold x + xlo and z + zlo as the values they carry instead of
+    each part alone (libm's expf and torch's exp can differ by an ulp; a
+    solve that moves by an ulp leaves the carried value within the bound
+    but its lo part, 1e-7 of it, anywhere)."""
     u, lv, tol, gate = fr.prepare_inputs(u_time, lane_values)
-    yh, sh, fh, ih, flh = F.host_step(lib, fr.plan, u, lv, tol, gate, state)
-    yp, sp, fp, ip, flp = F.plain_run(fr.plan, u, lv, tol, gate, state)
+    coef = fr._coef_tables(lv.shape[1])
+    yh, sh, fh, ih, flh = F.host_step(lib, fr.plan, u, lv, tol, gate, state,
+                                      coef)
+    yp, sp, fp, ip, flp = F.plain_run(fr.plan, u, lv, tol, gate, state, coef)
     yh = yh.double().numpy()
     yp = yp.double().numpy()
     err = np.abs(yh - yp).max(axis=(0, 1))
     peak = np.maximum(np.abs(yp).max(axis=(0, 1)), 1e-30)
     assert (20 * np.log10(err / peak + 1e-300)).max() < -90.0
     assert torch.equal(fh, fp) and torch.equal(flh, flp)
-    for k in sp:
-        scale = max(float(sp[k].abs().max()), 1e-30)
-        assert float((sh[k] - sp[k]).abs().max()) <= 1e-4 * scale, k
+    def vals(st):
+        if not pairs:
+            return st
+        out = {k: v for k, v in st.items() if k not in ("xlo", "zlo")}
+        out["x"] = st["x"].double() + st["xlo"].double()
+        out["z"] = st["z"].double() + st["zlo"].double()
+        return out
+
+    vh, vp = vals(sh), vals(sp)
+    for k in vp:
+        scale = max(float(vp[k].abs().max()), 1e-30)
+        assert float((vh[k] - vp[k]).abs().max()) <= 1e-4 * scale, k
     return sp
 
 
@@ -144,14 +163,14 @@ def _sine(amp, T):
 
 def test_step_clipper(host_lib):
     _, out = host_lib
-    fr = FusedRunner(M.diodeclipper_model())
+    fr = FusedRunner(M.diodeclipper_model(), device="cpu")
     _compare(load_host(fr.plan, out), fr, _sine(1.5, 64), np.zeros((128, 0)),
              fr.initial_state(128))
 
 
 def test_step_birdie_pot_lanes(host_lib):
     _, out = host_lib
-    fr = FusedRunner(M.birdie_model(), lane_input_idx=(1,))
+    fr = FusedRunner(M.birdie_model(), lane_input_idx=(1,), device="cpu")
     _compare(load_host(fr.plan, out), fr, _sine(0.3, 32),
              np.linspace(0.05, 0.95, 128)[:, None], fr.initial_state(128))
 
@@ -159,7 +178,7 @@ def test_step_birdie_pot_lanes(host_lib):
 def test_step_superover_from_seeds(host_lib):
     _, out = host_lib
     m = M.superover_model(drive=None, tone=None, level=1.0, vb_source=True)
-    fr = FusedRunner(m, lane_input_idx=(1, 2), powerup="steady")
+    fr = FusedRunner(m, lane_input_idx=(1, 2), powerup="steady", device="cpu")
     lanes = np.array([0, 451, 2048, 3224, 3306, 4095] + list(range(
         700, 4096, 400)))
     state = load_steady_seed(os.path.join(ROOT, ".steadyseed_cache.npz"),
@@ -171,7 +190,7 @@ def test_step_superover_from_seeds(host_lib):
 
 def test_linear_model_without_subsystems(host_lib):
     _, out = host_lib
-    fr = FusedRunner(M.sallenkey_model())
+    fr = FusedRunner(M.sallenkey_model(), device="cpu")
     _compare(load_host(fr.plan, out), fr, _sine(0.5, 32), np.zeros((4, 0)),
              fr.initial_state(4))
 
@@ -184,14 +203,80 @@ def test_step_level_powerup_then_main(host_lib, model):
     _, out = host_lib
     if model == "clipper":
         fr = FusedRunner(M.diodeclipper_model(), lane_scale_idx=(0,),
-                         powerup="safe")
+                         powerup="safe",
+                         device="cpu")
         amp, L = 1.5, 64
     else:
         fr = FusedRunner(S.build_model("level", "chain"),
-                         lane_scale_idx=(0,), powerup="safe")
+                         lane_scale_idx=(0,), powerup="safe",
+                         device="cpu")
         amp, L = 0.2, 32
     pr = fr._powerup_runner()
     lv = np.linspace(0.1, 2.0, L)[:, None]
     state = _compare(load_host(pr.plan, out), pr, _sine(amp, 16), lv,
                      pr.initial_state(L))
     _compare(load_host(fr.plan, out), fr, _sine(amp, 16), lv, state)
+
+
+def clipper_with_r1(r):
+    """The diode clipper with another series resistor (the construction of
+    tests/test_fused.py's per-lane-model case)."""
+    circ = M.diodeclipper()
+    circ.delete("r1")
+    circ.add("r1", T.resistor(r))
+    circ.connect(("r1", 1), ("j_in", "+"))
+    circ.connect(("r1", 2), ("d1", "+"))
+    return T.DiscreteModel(circ, 1 / 44100)
+
+
+def _powerup_then_main(out, fr, amp, lv, T_=16):
+    """The power-up sibling's build from cold, then the production build
+    from the state it left."""
+    pr = fr._powerup_runner()
+    L = len(lv)
+    state = _compare(load_host(pr.plan, out), pr, _sine(amp, T_), lv,
+                     pr.initial_state(L), pairs=True)
+    _compare(load_host(fr.plan, out), fr, _sine(amp, T_), lv, state,
+             pairs=True)
+
+
+def test_step_per_lane_models_clipper(host_lib):
+    """Four clippers as the per-lane models of one runner: the build reads
+    the varying coefficients from the lane's (hi, lo) table entries."""
+    _, out = host_lib
+    fr = FusedRunner([clipper_with_r1(r) for r in (820.0, 1000.0, 1500.0,
+                                                   4700.0)],
+                     device="cpu")
+    assert fr.nvar > 0
+    _compare(load_host(fr.plan, out), fr, _sine(2.0, 64), np.zeros((64, 0)),
+             fr.initial_state(64))
+    # lane-scaled, from cold through both builds
+    fr = FusedRunner([clipper_with_r1(r) for r in (820.0, 4700.0)],
+                     lane_scale_idx=(0,), powerup="safe",
+                     device="cpu")
+    _powerup_then_main(out, fr, 1.5, np.linspace(0.1, 2.0, 64)[:, None])
+
+
+def test_step_presets_powerup_then_main(host_lib):
+    """Three Super Over presets (62 varying coefficients) x 8 levels: the
+    presets path's two builds."""
+    _, out = host_lib
+    models = S.build_models([S.preset_spec(*S.PRESETS[i]) for i in (0, 5, 7)],
+                            workers=1)
+    fr = FusedRunner(models, lane_scale_idx=(0,), powerup="safe", device="cpu")
+    assert fr.nvar == 62
+    _powerup_then_main(out, fr, 0.2,
+                       np.repeat(np.linspace(0.1, 2.0, 8), 3)[:, None])
+
+
+def test_step_full_powerup_then_main(host_lib):
+    """The un-decomposed Super Over: one subsystem with nn 7, np 5 (a
+    pivoted 7x7 df elimination with six right-hand columns, and the fold
+    loop), both builds."""
+    _, out = host_lib
+    fr = FusedRunner(S.build_model("level", "full"), lane_scale_idx=(0,),
+                     powerup="safe",
+                     device="cpu")
+    assert fr.sub_fragile == [True] and fr.plan.subs[0]["fold"]
+    _powerup_then_main(out, fr, 0.2, np.linspace(0.1, 2.0, 16)[:, None],
+                       T_=8)

@@ -50,7 +50,7 @@ def lane_db(y, ref):
 def against_jax(jax_model, port_model, u, lv, chunk, **kw):
     jr = JaxRunner(jax_model, interpret=True, compile_cache=False,
                    time_chunk=chunk, **{**PROD, **kw})
-    tr = FusedRunner(port_model, **kw)
+    tr = FusedRunner(port_model, **kw, device="cpu")
     yj, sj, ij = jr.run(u, lv, check=False)
     yt, st, it = tr.run(u, lv, check=False)
     db = lane_db(yt.numpy(), np.asarray(yj))
@@ -89,7 +89,8 @@ def test_powerup_run_is_sibling_then_main():
     for bit; the sibling keeps the sensitivity dz/dp up to date (with
     "track" it does not use it, but the runner after the handoff does)."""
     fr = FusedRunner(TM.diodeclipper_model(), lane_scale_idx=(0,),
-                     powerup="safe", powerup_samples=24)
+                     powerup="safe", powerup_samples=24,
+                     device="cpu")
     u = sine(1.5, 48)
     y, state, info = fr.run(u, LEVELS, check=False)
     pr = fr._powerup_runner()
@@ -123,7 +124,8 @@ def test_level_superover_matches_float64_references():
                     - set(refs))
     sel = np.array(sorted(set(refs) | set(others[:128 - len(refs)])))
     tr = FusedRunner(S.build_model("level", "chain"), powerup="safe",
-                     powerup_samples=32, **cfg)
+                     powerup_samples=32, **cfg,
+                     device="cpu")
     assert tr.sub_fragile == [False, False, True]
     T = 64
     y, _, info = tr.run(sine(0.2, T), lvals[sel], check=False)

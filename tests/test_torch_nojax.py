@@ -40,7 +40,8 @@ SCRIPT = textwrap.dedent("""
     from acme_tpu_torch.models import diodeclipper_model
     fr = acme_tpu_torch.FusedRunner(diodeclipper_model(),
                                     lane_scale_idx=(0,), powerup="safe",
-                                    powerup_samples=16)
+                                    powerup_samples=16,
+                                    device="cpu")
     u = (1.5 * np.sin(2 * np.pi * 1000 / 44100 * np.arange(32)))[None, :]
     y, state, info = fr.run(u, np.linspace(0.1, 2.0, 128)[:, None])
     assert tuple(y.shape) == (128, 1, 32)

@@ -9,8 +9,11 @@ the equilibrated condition numbers and the fragile-subsystem flags, the
 per-lane tolerances (with steady floors) and the initial state.
 """
 
+import copy
+
 import numpy as np
 import pytest
+import torch
 
 from acme_tpu import models as M
 from acme_tpu.ops.fused import FusedRunner as JaxRunner
@@ -48,7 +51,8 @@ def test_prepared_arrays_equal(case):
     jr = JaxRunner(model, lane_input_idx=lidx, interpret=True,
                    compile_cache=False, fast_iters=1, df_polish="comp_final",
                    fast_verify="merge", polish_fixed=2, **rkw)
-    tr = FusedRunner(getattr(TM, fn)(**kw), lane_input_idx=lidx, **rkw)
+    tr = FusedRunner(getattr(TM, fn)(**kw), lane_input_idx=lidx, **rkw,
+                     device="cpu")
     jp, tp = jr._prep[0], tr.prep
     np.testing.assert_array_equal(jr.Tx, tr.Tx)
     np.testing.assert_array_equal(jr.u_ss, tr.u_ss)
@@ -93,11 +97,33 @@ def test_unported_configurations_raise():
                dict(powerup=dict(extrapolate=False)),
                dict(powerup=dict(df_polish="plain_final"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            FusedRunner(m, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FusedRunner([m, m])
+            FusedRunner(m, **kw, device="cpu")
     with pytest.raises(ValueError, match="unknown powerup override"):
-        FusedRunner(m, powerup=dict(fast_iters=0, grid=4))
+        FusedRunner(m, powerup=dict(fast_iters=0, grid=4), device="cpu")
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="needs no CUDA card")
+def test_default_device_is_the_card():
+    """A runner runs on the card unless the caller asks for the CPU: with
+    no card the default raises instead of running the plain version."""
+    m = TM.diodeclipper_model()
+    for kw in ({}, dict(device="cuda"), dict(device="cuda:0")):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            FusedRunner(m, **kw)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        FusedRunner([m, copy.deepcopy(m)])
+    assert FusedRunner(m, device="cpu").device.type == "cpu"
+
+
+def test_stack_limit_constants_agree():
+    """The per-thread stack the launch sets (``csrc/fused.cu``) is the
+    figure the build module publishes for checking ptxas's frames."""
+    import os
+    import re
+    from acme_tpu_torch.ops import build
+    with open(os.path.join(build.CSRC, "fused.cu")) as f:
+        (n,) = re.findall(r"constexpr size_t STACK_BYTES = (\d+);", f.read())
+    assert int(n) == build.STACK_BYTES
 
 
 def test_level_sweep_configurations_build():
@@ -110,9 +136,10 @@ def test_level_sweep_configurations_build():
                dict(df_polish="final"), dict(fast_iters=0),
                dict(powerup="safe"), dict(powerup=dict(fast_iters=0)),
                dict(powerup=dict(compensated=True, newton_iters=64))):
-        FusedRunner(m, **kw)
+        FusedRunner(m, **kw, device="cpu")
     fr = FusedRunner(m, lane_scale_idx=(0,), powerup="safe",
-                     powerup_samples=64)
+                     powerup_samples=64,
+                     device="cpu")
     pr = fr._powerup_runner()
     assert pr is fr._powerup_runner() and pr.prep is fr.prep
     assert pr.plan is not fr.plan
@@ -129,7 +156,8 @@ def test_level_sweep_configurations_build():
     assert (fr.plan.kernel_name, pr.plan.kernel_name) == \
         ("fused_sweep", "fused_sweep_powerup")
     assert FusedRunner(m, fast_iters=0, extrapolate="track",
-                       df_polish="final").plan.kernel_name == "fused_sweep"
+                       df_polish="final",
+                       device="cpu").plan.kernel_name == "fused_sweep"
     with pytest.raises(ValueError, match="1 columns"):
         fr.prepare_inputs(np.zeros((1, 4)), np.zeros((128, 2)))
 
@@ -139,10 +167,26 @@ def test_op_counts():
     subsystem; more work for a bigger subsystem, and for the EFT dots of a
     model with more states."""
     from acme_tpu_torch.ops.emit import _solve_ops, op_counts
-    clip = op_counts(FusedRunner(TM.diodeclipper_model()).plan)
+    clip = op_counts(FusedRunner(TM.diodeclipper_model(), device="cpu").plan)
     bird = op_counts(FusedRunner(TM.birdie_model(),
-                                 lane_input_idx=(1,)).plan)
+                                 lane_input_idx=(1,),
+                                 device="cpu").plan)
     assert len(clip[1]) == 1 and len(bird[1]) == 1
     assert 0 < clip[0] < bird[0] and 0 < clip[1][0] < bird[1][0]
     assert _solve_ops(1, 1) < _solve_ops(2, 1) < _solve_ops(3, 1) \
         < _solve_ops(5, 1) < _solve_ops(5, 3)
+    # a per-lane coefficient's EFT term (here Eq's entry, which varies
+    # with the clipper's series resistor) costs its lo * v more
+    import acme_tpu_torch as T
+
+    def clipper(r):
+        circ = TM.diodeclipper()
+        circ.delete("r1")
+        circ.add("r1", T.resistor(r))
+        circ.connect(("r1", 1), ("j_in", "+"))
+        circ.connect(("r1", 2), ("d1", "+"))
+        return T.DiscreteModel(circ, 1 / 44100)
+
+    many = FusedRunner([clipper(820.0), clipper(4700.0)], device="cpu")
+    assert many.nvar == 2
+    assert op_counts(many.plan) == (clip[0] + 2, clip[1])
