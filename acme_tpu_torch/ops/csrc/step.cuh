@@ -1,15 +1,21 @@
 // The per-lane sample step of the fused kernel: one subsystem solve per
-// model subsystem (in chain order), then the EFT output row and state
-// update.  A line-for-line per-lane rendering of _build.kernel in
-// acme_tpu/ops/fused.py (fused.py:1004-2371) for two runner
-// configurations: the production one (fast_iters >= 1, comp_final verdict,
-// df_solve="auto", fast_verify="merge", extrapolated warm starts, df state)
-// and the two-phase power-up's sibling (fast_iters = 0: the robust path
-// enters every sample; extrapolate="track": the start is zw; the "final"
-// verdict: a compensated polish loop and a df verdict for every
-// subsystem).  The header's constants (FAST_ITERS, EXTRAP_USE, POL_MODE,
-// VERDICT_DF, REL_TOL_POL) pick the configuration at compile time, so
-// each build holds only its own branches.
+// model subsystem (in chain order), then the output row and state update.
+// A line-for-line per-lane rendering of _build.kernel in
+// acme_tpu/ops/fused.py (fused.py:1004-2371) for every step configuration
+// of the JAX runner but one (fast_verify="group" with a fast path, whose
+// redo couples a lane group): compensated or plain pfull and polish, the
+// fast path (fast_iters unguarded steps, or none with polish_only) with
+// its keep test at the gate or the polish target and its redo for the
+// lanes that fail it ("merge") or for all ("always"), or the robust path
+// every sample (fast_iters = 0); extrapolated, "track" or no warm start;
+// pivoted or unpivoted main-path solves; the polish loop in plain,
+// compensated or df physics; no verdict, or a compensated, df or
+// df-residual one with a df elimination on the df-solve subsystems; df or
+// plain state.  The header's constants (COMP, DF_STATE, EXTRAP,
+// EXTRAP_USE, PIVOT, FAST_ITERS, POLISH_ONLY, VERIFY_ALWAYS, KEEP_TOL,
+// POL_MODE, VERDICT, RESCUE_MODE, REL_*, and each subsystem's DF_SLV and
+// FOLD) pick the configuration at compile time, so each build holds only
+// its own branches.
 //
 // Every loop here is per lane: where the TPU kernel loops until all lanes
 // of a group are done (jnp.any / jnp.all exits) and masks the finished
@@ -33,7 +39,10 @@ namespace acme {
 
 using namespace acme_model;
 
-enum Mode { PLAIN = 0, COMP = 1, DFM = 2 };
+// evaluation modes (fused._Plan): plain, compensated, df physics, the df
+// residual with a plain Jacobian (verdict_jac="plain"); NONE: no verdict
+enum Mode { NONE = -1, PLAIN = 0, COMPM = 1, DFM = 2, DFRES = 3 };
+constexpr bool FAST_PATH = FAST_ITERS > 0 || POLISH_ONLY;
 
 template <int N>
 struct cmax1 {
@@ -135,6 +144,40 @@ HD inline void eval_df(const Ctx<S>& cx, const float (&z)[S::NN], Eval<S>& e,
   eval_stats<S>(e);
 }
 
+// eval_at with the df residual and the plain Jacobian of the same point
+// (fused.py:1240-1254): each half computes only the nodes it needs; only a
+// build with that verdict has them (emit.py)
+template <class S>
+HD inline void eval_dfres(const Ctx<S>& cx, const float (&z)[S::NN],
+                          Eval<S>& e) {
+  if constexpr (VERDICT == DFRES) {
+    const float *cv = cx.ln->cv, *cvl = cx.ln->cvl;
+    float qlo[S::NQ];
+    S::q_comp(cv, cvl, z, cx.pf, cx.pflo, e.q, qlo);
+    df qd[S::NQ], rd[S::NN];
+    for (int c = 0; c < S::NQ; ++c) qd[c] = df(e.q[c], qlo[c]);
+    S::nl_df_res(qd, rd);
+    S::nl_jq(e.q, e.Jq);
+    for (int a = 0; a < S::NN; ++a) e.res[a] = rd[a].hi + rd[a].lo;
+    S::jac(cv, cvl, e.Jq, &e.J[0][0]);
+    eval_stats<S>(e);
+  }
+}
+
+// eval_at in `mode`, with the df Newton system when `Jd` is given (df mode)
+template <class S>
+HD inline void eval_mode(const Ctx<S>& cx, const float (&z)[S::NN], int mode,
+                         Eval<S>& e, df* res_df, df (*Jd)[S::NN]) {
+  if (mode == DFM)
+    eval_df<S>(cx, z, e, res_df, Jd);
+  else if (mode == DFRES)
+    eval_dfres<S>(cx, z, e);
+  else if (mode == COMPM)
+    eval_comp<S>(cx, z, e);
+  else
+    eval_plain<S>(cx, cx.pf, z, e, true);
+}
+
 template <class S>
 HD inline float clipz(float d, int i) {
   return jclip(d, -S::zclip(i), S::zclip(i));
@@ -168,11 +211,11 @@ HD inline void run_newton(const Ctx<S>& cx, const float (&zs)[S::NN],
   for (int it = 0; it < K_NEWTON; ++it) {
     Eval<S> e;
     eval_plain<S>(cx, cx.pf, z, e, true);
-    float tol_eff = jclip(3.0e-7f * e.scale, cx.ltol, 1e4f * cx.ltol);
-    float gate_eff = jclip(4.0e-6f * e.scale, cx.lgate, 1e4f * cx.lgate);
+    float tol_eff = jclip(REL_TOL * e.scale, cx.ltol, 1e4f * cx.ltol);
+    float gate_eff = jclip(REL_GATE * e.scale, cx.lgate, 1e4f * cx.lgate);
     float R[1][S::NN], X[1][S::NN];
     for (int a = 0; a < S::NN; ++a) R[0][a] = e.res[a];
-    solve_rows<S::NN, 1, float>(e.J, R, X, 0, true);
+    solve_rows<S::NN, 1, float>(e.J, R, X, 0, PIVOT);
     bool stall_any = e.resmax >= 0.995f * prev;
     bool stalled = stall_any && (e.resmax < gate_eff);
     strikes = stalled ? strikes + 1.0f : 0.0f;
@@ -216,7 +259,7 @@ HD inline void homotopy_rescue(const Ctx<S>& cx, Solved<S>& st) {
     S::pf_mix(ln.cv, ln.cvl, pmix, pf);
     Eval<S> e;
     eval_plain<S>(cx, pf, z_h, e, true);
-    float gate_eff = jclip(4.0e-6f * e.scale, cx.lgate, 1e4f * cx.lgate);
+    float gate_eff = jclip(REL_GATE * e.scale, cx.lgate, 1e4f * cx.lgate);
     bool ok = e.resmax < gate_eff;
     float R[1][S::NN], X[1][S::NN];
     for (int a = 0; a < S::NN; ++a) R[0][a] = e.res[a];
@@ -250,7 +293,8 @@ HD inline void homotopy_rescue(const Ctx<S>& cx, Solved<S>& st) {
   st.itv = st.itv + (float)trips;
 }
 
-// double-float-residual Newton rescue (fused.py:1585-1637)
+// double-float-residual Newton rescue (fused.py:1585-1637), in df physics
+// whenever the runner has df_polish, else in the polish loop's mode
 template <class S>
 ACME_NOINLINE HD void df_rescue(const Ctx<S>& cx, Solved<S>& st) {
   constexpr int K3 = 24;
@@ -260,7 +304,7 @@ ACME_NOINLINE HD void df_rescue(const Ctx<S>& cx, Solved<S>& st) {
   int k = 0;
   while (k < K3 && !(rm < st.g)) {
     Eval<S> e;
-    eval_df<S>(cx, zs, e, nullptr, nullptr);
+    eval_mode<S>(cx, zs, RESCUE_MODE, e, nullptr, nullptr);
     bool ok = e.resmax < st.g;
     float R[1][S::NN], X[1][S::NN];
     for (int a = 0; a < S::NN; ++a) R[0][a] = e.res[a];
@@ -328,27 +372,18 @@ HD inline void polish_eval(const Ctx<S>& cx, const float (&z)[S::NN], int mode,
   constexpr int NP = Ctx<S>::NP;
   Eval<S> e;
   df res_df[S::NN], Jd[S::NN][S::NN];
-  bool dfsys = false;
-  if (mode == DFM) {
-    if constexpr (S::DF_SLV) {
-      eval_df<S>(cx, z, e, res_df, Jd);
-      dfsys = true;
-    } else {
-      eval_df<S>(cx, z, e, nullptr, nullptr);
-    }
-  } else if (mode == COMP) {
-    eval_comp<S>(cx, z, e);
-  } else {
-    eval_plain<S>(cx, cx.pf, z, e, true);
-  }
-  pe.lgate_eff = jclip(4.0e-6f * e.scale, cx.lgate, 1e4f * cx.lgate);
-  pe.gate_eff_f = jclip(2.0e-6f * e.scale, cx.gate_v, 1e4f * cx.gate_v);
+  // a df-solve subsystem's df evaluation also builds the df system
+  const bool dfsys = S::DF_SLV && mode == DFM;
+  eval_mode<S>(cx, z, mode, e, res_df, dfsys ? Jd : nullptr);
+  pe.lgate_eff = jclip(REL_GATE * e.scale, cx.lgate, 1e4f * cx.lgate);
+  pe.gate_eff_f = jclip(REL_GATE_F * e.scale, cx.gate_v, 1e4f * cx.gate_v);
   pe.tol_pol = jclip(REL_TOL_POL * e.scale, cx.ptol, 1e4f * cx.ptol);
-  pe.ltol_eff = jclip(3.0e-7f * e.scale, cx.ltol, 1e4f * cx.ltol);
+  pe.ltol_eff = jclip(REL_TOL * e.scale, cx.ltol, 1e4f * cx.ltol);
   pe.resmax = e.resmax;
   const int rf = light ? 0 : (verdict ? VREFINE : REFINE);
   const df(*Jdp)[S::NN] = dfsys ? Jd : nullptr;
-  if (S::NP > 0 && !light) {
+  // the sensitivity columns ride along while the origin is maintained
+  if (EXTRAP && S::NP > 0 && !light) {
     float jp[NP * S::NN], X[1 + NP][S::NN];
     S::jp(cx.ln->cv, cx.ln->cvl, e.Jq, jp);
     polish_solve<S, 1 + NP>(e, res_df, Jdp, jp, rf, X);
@@ -378,8 +413,7 @@ struct PolishSt {
 template <class S>
 HD inline float vd_pass(const Ctx<S>& cx, PolishSt<S>& st) {
   PolishEval<S> pe;
-  polish_eval<S>(cx, st.z, (VERDICT_DF || S::DF_SLV) ? DFM : COMP, false,
-                 true, pe);
+  polish_eval<S>(cx, st.z, S::DF_SLV ? (int)DFM : VERDICT, false, true, pe);
   if (pe.fin) st.tp = pe.tol_pol;
   bool vstep = S::DF_SLV ? pe.fin : (pe.fin && pe.resmax >= pe.tol_pol);
   for (int a = 0; a < S::NN; ++a) {
@@ -400,9 +434,8 @@ HD inline float vd_pass(const Ctx<S>& cx, PolishSt<S>& st) {
   return pe.resmax;
 }
 
-// plain (comp_final) or compensated ("final") polish loop with the
-// unrolled prefix, the comp/df verdict and the fold continuation
-// (fused.py:1750-2016)
+// the polish loop (plain, compensated or df) with its unrolled prefix,
+// then the verdict, if any, and the fold continuation (fused.py:1750-2016)
 template <class S>
 ACME_NOINLINE HD void polish_all(const Ctx<S>& cx, const float (&zs)[S::NN],
                                  PolishSt<S>& st) {
@@ -424,7 +457,8 @@ ACME_NOINLINE HD void polish_all(const Ctx<S>& cx, const float (&zs)[S::NN],
         !(st.k < (float)P_POL && !((st.rm < st.tp) || (st.pfrz > 0.5f))))
       break;
     PolishEval<S> pe;
-    polish_eval<S>(cx, st.z, POL_MODE, true, false, pe);
+    // with a verdict the loop's steps drop the columns and refinement
+    polish_eval<S>(cx, st.z, POL_MODE, VERDICT != NONE, false, pe);
     bool nc = pe.fin && (pe.resmax >= 0.7f * st.rm);
     if (nc) st.pfrz = 1.0f;
     bool unclip = true;
@@ -449,18 +483,20 @@ ACME_NOINLINE HD void polish_all(const Ctx<S>& cx, const float (&zs)[S::NN],
       for (int a = 0; a < S::NN; ++a) st.cols[b][a] = pe.cols[b][a];
     st.k = st.k + 1.0f;
   }
-  float rm_prev = vd_pass<S>(cx, st);
-  if constexpr (S::FOLD) {
-    for (int i = 0; i < 9; ++i) {
-      if (!((rm_prev >= VTGT) && jfinite(rm_prev))) break;
-      PolishSt<S> st2 = st;
-      float rm_df = vd_pass<S>(cx, st2);
-      bool act = rm_df <= 0.9f * rm_prev;
-      rm_prev = act ? rm_df : 0.0f;
-      if (act) {
-        st = st2;
-      } else {
-        st.k = st2.k;
+  if constexpr (VERDICT != NONE) {
+    float rm_prev = vd_pass<S>(cx, st);
+    if constexpr (S::FOLD) {
+      for (int i = 0; i < 9; ++i) {
+        if (!((rm_prev >= VTGT) && jfinite(rm_prev))) break;
+        PolishSt<S> st2 = st;
+        float rm_df = vd_pass<S>(cx, st2);
+        bool act = rm_df <= 0.9f * rm_prev;
+        rm_prev = act ? rm_df : 0.0f;
+        if (act) {
+          st = st2;
+        } else {
+          st.k = st2.k;
+        }
       }
     }
   }
@@ -478,10 +514,18 @@ HD inline void solve_sub(Lane& ln, const float* u, float* z_all,
   cx.lgate = ln.gate[S::IDX];
   cx.gate_v = ln.gate[NSUB + S::IDX];
   cx.ptol = ln.gate[2 * NSUB + S::IDX];
-  S::p_of(ln.cv, ln.cvl, ln.x, ln.xlo, u, z_all, z_lo_all, cx.p);
-  S::pfull(ln.cv, ln.cvl, cx.p, cx.pf, cx.pflo);
+  if constexpr (DF_STATE)
+    S::p_of(ln.cv, ln.cvl, ln.x, ln.xlo, u, z_all, z_lo_all, cx.p);
+  else
+    S::p_plain(ln.cv, ln.cvl, ln.x, u, z_all, cx.p);
+  if constexpr (COMP) {
+    S::pfull(ln.cv, ln.cvl, cx.p, cx.pf, cx.pflo);
+  } else {
+    S::pf_mix(ln.cv, ln.cvl, cx.p, cx.pf);
+    for (int c = 0; c < S::NQ; ++c) cx.pflo[c] = 0.0f;
+  }
   // extrapolated warm start, jump capped at 4 trust regions (with
-  // extrapolate="track" the start is zw itself)
+  // extrapolate "track" or False the start is zw itself)
   float z0[NN];
   for (int i1 = 0; i1 < NN; ++i1) {
     if constexpr (EXTRAP_USE && S::NP > 0) {
@@ -499,14 +543,15 @@ HD inline void solve_sub(Lane& ln, const float* u, float* z_all,
   }
   PolishSt<S> st;
   float itv;
-  if constexpr (FAST_ITERS == 0) {
+  if constexpr (!FAST_PATH) {
     // the robust path from the start, then the polish (fused.py:2147-2151)
     Solved<S> sv;
     full_solve<S>(cx, z0, sv);
     polish_all<S>(cx, sv.z, st);
     itv = sv.itv + st.k;
   } else {
-    // unguarded fast path with the already-converged guard
+    // unguarded fast path with the already-converged guard (no step with
+    // polish_only)
     float zs[NN];
     for (int a = 0; a < NN; ++a) zs[a] = z0[a];
     for (int f = 0; f < FAST_ITERS; ++f) {
@@ -516,16 +561,18 @@ HD inline void solve_sub(Lane& ln, const float* u, float* z_all,
       for (int a = 1; a < NN; ++a) rmf = jmax(rmf, fabsf(e.res[a]));
       float R[1][NN], X[1][NN];
       for (int a = 0; a < NN; ++a) R[0][a] = e.res[a];
-      solve_rows<NN, 1, float>(e.J, R, X, 0, true);
+      solve_rows<NN, 1, float>(e.J, R, X, 0, PIVOT);
       bool okf = all_finite<S>(X[0]) && (rmf >= cx.ltol);
       if (okf)
         for (int a = 0; a < NN; ++a) zs[a] = zs[a] - clipz<S>(X[0][a], a);
     }
     polish_all<S>(cx, zs, st);
     itv = (float)FAST_ITERS + st.k;
-    bool ok1 = (st.rm < st.gf) || ((st.rm1 < st.tl1) && (st.pstall > 0.5f));
-    if (!ok1) {
-      // keep/redo under "merge": this lane failed the keep test
+    const float keep_thr = KEEP_TOL ? st.tp : st.gf;
+    bool ok1 = (st.rm < keep_thr) || ((st.rm1 < st.tl1) && (st.pstall > 0.5f));
+    if (VERIFY_ALWAYS || !ok1) {
+      // the redo: for the lanes that failed the keep test ("merge"), or
+      // for every lane ("always")
       Solved<S> sv;
       full_solve<S>(cx, zs, sv);
       PolishSt<S> st2;
@@ -557,7 +604,7 @@ HD inline void solve_sub(Lane& ln, const float* u, float* z_all,
     z_lo_all[S::OFF + a] = zsub ? 0.0f : st.zlo[a];
   }
   bool ok = !implaus;
-  if (S::NP > 0) {
+  if (EXTRAP && S::NP > 0) {
     bool okd = ok && conv;
     for (int b = 0; b < S::NP; ++b)
       for (int a = 0; a < NN; ++a) okd = okd && (fabsf(st.cols[b][a]) < 1e6f);
@@ -570,7 +617,9 @@ HD inline void solve_sub(Lane& ln, const float* u, float* z_all,
         for (int i = 0; i < S::NP; ++i)
           ln.dzdp[S::DOFF + a * S::NP + i] = -st.cols[i][a];
   } else if (ok) {
+    // the position origin follows even without extrapolation
     for (int a = 0; a < NN; ++a) ln.zw[S::OFF + a] = st.z[a];
+    for (int i = 0; i < S::NP; ++i) ln.wp[S::POFF + i] = cx.p[i];
   }
 }
 
@@ -585,9 +634,17 @@ HD inline void sample(Lane& ln, const float* u_t, const float* lane_vals,
 #define ACME_SOLVE(S) solve_sub<S>(ln, u, z_all, z_lo_all, any_fail, any_floor);
   ACME_FOR_EACH_SUB(ACME_SOLVE)
 #undef ACME_SOLVE
-  output_row(ln.cv, ln.cvl, ln.x, ln.xlo, u, z_all, z_lo_all, y);
   float xn[cmax1<NX>::v], xnlo[cmax1<NX>::v];
-  state_update(ln.cv, ln.cvl, ln.x, ln.xlo, u, z_all, z_lo_all, xn, xnlo);
+  if constexpr (DF_STATE) {
+    output_row(ln.cv, ln.cvl, ln.x, ln.xlo, u, z_all, z_lo_all, y);
+    state_update(ln.cv, ln.cvl, ln.x, ln.xlo, u, z_all, z_lo_all, xn, xnlo);
+  } else {
+    // plain read-outs; state and z without lo parts
+    output_plain(ln.cv, ln.cvl, ln.x, u, z_all, y);
+    state_plain(ln.cv, ln.cvl, ln.x, u, z_all, xn);
+    for (int i = 0; i < NX; ++i) xnlo[i] = 0.0f;
+    for (int i = 0; i < NNT; ++i) z_lo_all[i] = 0.0f;
+  }
   for (int i = 0; i < NX; ++i) ln.x[i] = xn[i], ln.xlo[i] = xnlo[i];
   for (int i = 0; i < NNT; ++i) ln.z[i] = z_all[i], ln.zlo[i] = z_lo_all[i];
   if (NSUB > 0) {

@@ -292,11 +292,12 @@ _DF = {"add": "df_add({a}, {b})", "sub": "df_add({a}, df_neg({b}))",
 
 
 def _emit_fn(name, g, res, Jq, nq, mode):
-    """C++ body of ``name(q, res, Jq)`` for one recorded subsystem."""
+    """C++ body of ``name(q, res, Jq)`` for one recorded subsystem; with
+    ``res`` or ``Jq`` None, of ``name(q, Jq)`` or ``name(q, res)``, which
+    compute only the nodes that output needs."""
     T = "df" if mode == "df" else "float"
     tab = _DF if mode == "df" else _F32
-    nn = len(res)
-    outs = list(res) + [i for row in Jq for i in row]
+    outs = list(res or ()) + [i for row in Jq or () for i in row]
     live = _live(g, outs)
     lines = []
     names = {}
@@ -349,12 +350,13 @@ def _emit_fn(name, g, res, Jq, nq, mode):
             expr = tab[op].format(a=a, b=b)
         names[i] = f"t{i}"
         lines.append(f"  const {ct} t{i} = {expr};")
-    for a in range(nn):
-        lines.append(f"  res[{a}] = {ref(res[a])};")
-    for a in range(nn):
+    for a, i in enumerate(res or ()):
+        lines.append(f"  res[{a}] = {ref(i)};")
+    for a, row in enumerate(Jq or ()):
         for c in range(nq):
-            lines.append(f"  Jq[{a * nq + c}] = {ref(Jq[a][c])};")
-    sig = f"const {T}* q, {T}* res, {T}* Jq"
+            lines.append(f"  Jq[{a * nq + c}] = {ref(row[c])};")
+    sig = ", ".join([f"const {T}* q"] + [f"{T}* res"] * (res is not None)
+                    + [f"{T}* Jq"] * (Jq is not None))
     attr = "ACME_NOINLINE HD static" if mode == "df" else "HD static inline"
     return f"  {attr} void {name}({sig}) {{\n" + "\n".join(
         "  " + ln for ln in lines) + "\n  }\n"
@@ -409,16 +411,27 @@ def _eft_terms(coef_sp, vals, vlos):
     return out
 
 
-def _dotv_expr(coeffs, vals):
-    """Plain float32 dot with structural zeros skipped (fused.py dotv);
-    None when every coefficient is zero."""
-    acc = None
+def _dotv_expr(coeffs, vals, acc=None):
+    """Plain float32 dot with structural zeros skipped (fused.py dotv),
+    continuing the sum ``acc``; None when every coefficient is zero."""
     for cf, v in zip(coeffs, vals):
         if _czero(cf) or v is None:
             continue
         term = f"{_cval(cf)} * {v}"
         acc = term if acc is None else f"({acc}) + {term}"
     return acc
+
+
+def _dotv_rows(rows, base=None):
+    """One plain float32 sum over several (coefficient row, values) pairs
+    in order, then ``+ base`` (fused.py:2292-2296): the expression, "0.0f"
+    when it is empty."""
+    acc = None
+    for coeffs, vals in rows:
+        acc = _dotv_expr(coeffs, vals, acc)
+    if base is not None:
+        acc = base if acc is None else f"({acc}) + {base}"
+    return acc or "0.0f"
 
 
 def _sub_struct(plan, k, s):
@@ -454,6 +467,15 @@ def _sub_struct(plan, k, s):
         else:
             o.append(f"    p[{i}] = 0.0f;")
     o.append("  }")
+    # the same p as one plain float32 sum, for df_state=False
+    # (fused.py:1107-1110)
+    o.append(f"  HD static inline void p_plain({CV}, const float* x, "
+             "const float* u, const float* z, float* p) {")
+    for i in range(np_):
+        expr = _dotv_rows([(s["dq"][i], xs), (s["eq"][i], us),
+                           (s["fqprev"][i], zs)])
+        o.append(f"    p[{i}] = {expr};")
+    o.append("  }")
     # pfull = q0 + Pexp p as an EFT pair (fused.py:1113-1133)
     o.append(f"  HD static inline void pfull({CV}, const float* p, "
              "float* pf, float* pflo) {")
@@ -465,7 +487,9 @@ def _sub_struct(plan, k, s):
             o.append("      " + ln)
         o.append(f"      pf[{ci}] = hi; pflo[{ci}] = lo; }}")
     o.append("  }")
-    # homotopy pf = q0 + Pexp pmix, plain float32 (fused.py:1520-1528)
+    # pf = q0 + Pexp p, plain float32: the homotopy's at its mixed p
+    # (fused.py:1520-1528) and, with compensated=False, the sample's
+    # (fused.py:1134-1140)
     o.append(f"  HD static inline void pf_mix({CV}, const float* pm, "
              "float* pf) {")
     pms = [f"pm[{i}]" for i in range(np_)]
@@ -537,8 +561,17 @@ def _sub_struct(plan, k, s):
     g, res, Jq = record(s["nl"], nq)
     o.append(_emit_fn("nl", g, res, Jq, nq, "f32"))
     o.append(_emit_fn("nl_df", g, res, Jq, nq, "df"))
+    if plan.verdict == "df_res":
+        # the df_res evaluation's two halves: the df residual alone and
+        # the plain Jacobian alone (fused.py:1240-1254)
+        o.append(_emit_fn("nl_df_res", g, res, None, nq, "df"))
+        o.append(_emit_fn("nl_jq", g, None, Jq, nq, "f32"))
     o.append("};")
     return "\n".join(o)
+
+
+# the evaluation modes of fused._Plan as the kernel's Mode values
+_MODES = {None: -1, False: 0, True: 1, "df": 2, "df_res": 3}
 
 
 def model_header(plan):
@@ -559,13 +592,27 @@ def model_header(plan):
     o.append(f"constexpr float STALL_STRIKES = {_f(plan.stall_strikes)}, "
              f"PLATEAU_STRIKES = {_f(plan.plateau_strikes)}, "
              f"VTGT = {_f(0.02 * plan.tol)};")
-    # the step configuration: extrapolated start or zw; polish loop
-    # evaluation (0 plain, 1 compensated) and target; df verdict for every
-    # subsystem (df_polish="final") or only the fragile ones
-    o.append(f"constexpr bool EXTRAP_USE = {str(plan.extrap_use).lower()}, "
-             f"VERDICT_DF = {str(plan.df_final).lower()};")
-    o.append(f"constexpr int POL_MODE = {int(plan.df_final)};")
-    o.append(f"constexpr float REL_TOL_POL = {_f(plan.rel_tol_pol)};")
+    # the step configuration (fused._Plan): compensated pfull; df state;
+    # maintain / use the extrapolated start; pivoted main-path solves; the
+    # fast path (POLISH_ONLY: zero unguarded steps) with its keep test at
+    # the polish target (KEEP_TOL) and its redo for every lane
+    # (VERIFY_ALWAYS); the evaluation modes (0 plain, 1 compensated, 2 df,
+    # 3 df residual with a plain Jacobian; VERDICT -1: none) of the polish
+    # loop, the verdict and the df rescue; the relative tolerances
+    b = lambda v: str(bool(v)).lower()
+    o.append(f"constexpr bool COMP = {b(plan.comp)}, "
+             f"DF_STATE = {b(plan.dfs)}, EXTRAP = {b(plan.extrap)}, "
+             f"EXTRAP_USE = {b(plan.extrap_use)}, PIVOT = {b(plan.pivot)}, "
+             f"POLISH_ONLY = {b(plan.fast_path and not plan.fast)}, "
+             f"VERIFY_ALWAYS = {b(plan.verify_always)}, "
+             f"KEEP_TOL = {b(plan.keep_tol)};")
+    o.append(f"constexpr int POL_MODE = {_MODES[plan.pol_mode]}, "
+             f"VERDICT = {_MODES[plan.verdict]}, "
+             f"RESCUE_MODE = {_MODES[plan.rescue_mode]};")
+    o.append(f"constexpr float REL_TOL = {_f(plan.rel_tol)}, "
+             f"REL_GATE = {_f(plan.rel_gate)}, "
+             f"REL_GATE_F = {_f(plan.rel_gate_f)}, "
+             f"REL_TOL_POL = {_f(plan.rel_tol_pol)};")
     o.append("HD inline void u_full(const float* ut, const float* lanes, "
              "float* u) {")
     for jj, gi in enumerate(plan.time_idx):
@@ -607,6 +654,21 @@ def model_header(plan):
             o.append("    " + ln)
         o.append(f"    two_sum(hi, lo, xn[{xi}], xnlo[{xi}]); }}")
     o.append("}")
+    # plain float32 read-outs for df_state=False (fused.py:2291-2334)
+    o.append(f"HD inline void output_plain({CV}, const float* x, "
+             "const float* u, const float* z, float* y) {")
+    for oi in range(plan.ny):
+        expr = _dotv_rows([(plan.dy[oi], xs), (plan.ey[oi], us),
+                           (plan.fy[oi], zs)], _cval(plan.y0[oi]))
+        o.append(f"  y[{oi}] = {expr};")
+    o.append("}")
+    o.append(f"HD inline void state_plain({CV}, const float* x, "
+             "const float* u, const float* z, float* xn) {")
+    for xi in range(plan.nx):
+        expr = _dotv_rows([(plan.a[xi], xs), (plan.b[xi], us),
+                           (plan.c[xi], zs)], _cval(plan.x0[xi]))
+        o.append(f"  xn[{xi}] = {expr};")
+    o.append("}")
     o.append("}  // namespace acme_model")
     subs = " ".join(f"F(Sub{k})" for k in range(plan.nsub))
     o.append(f"#define ACME_FOR_EACH_SUB(F) {subs}")
@@ -632,12 +694,29 @@ def write_header(plan, build_dir):
 
 EFT_TERM_OPS = 10     # one compensated dot term: product, its error, two_sum
 VAR_TERM_OPS = 2      # more for a per-lane coefficient: its lo * v, added
+PLAIN_TERM_OPS = 2    # one plain dot term: product and sum
+# float operations of one df operation of the element physics, counted in
+# csrc/df.cuh (two_sum 6, quick_two_sum 3, two_prod 2; exp's 12-term
+# polynomial 240); a comparison or select of collapsed values 3
+DF_OPS = {"add": 11, "sub": 11, "rsub": 11, "mul": 9, "div": 12,
+          "rdiv": 12, "neg": 2, "exp": 270, "expm1": 290, "tanh": 322,
+          "sqrt": 12, "abs": 3, "sign": 2, "min": 3, "max": 3, "lt": 3,
+          "le": 3, "gt": 3, "ge": 3, "eq": 3, "ne": 3, "and": 1, "or": 1,
+          "not": 1, "isfinite": 2, "where": 2}
+# the mean float operations of a df operation inside the df elimination
+DF_SOLVE_OP = 10
 
 
 def _eft_ops(rows):
     """Operations of the EFT dot terms of the split-coefficient rows."""
     return sum(EFT_TERM_OPS + VAR_TERM_OPS * isinstance(cs, _Var)
                for row in rows for cs in row if _nz(cs))
+
+
+def _plain_ops(rows):
+    """Operations of plain dots over the coefficient rows."""
+    return sum(PLAIN_TERM_OPS for row in rows for cf in row
+               if not _czero(cf))
 
 
 def _solve_ops(n, m):
@@ -649,28 +728,95 @@ def _solve_ops(n, m):
     return 4 * n * n + (2 * n ** 3) // 3 + 2 * n * n * m
 
 
+def _physics_ops(s, df, res=True, jq=True):
+    """Operations of one call of the subsystem's element physics, in
+    float32 (every operation 1) or in df (``DF_OPS``), over the nodes that
+    the residual (``res``) and the Jacobian (``jq``) need."""
+    g, r, Jq = record(s["nl"], s["nq"])
+    outs = list(r) * res + [i for row in Jq for i in row] * jq
+    n = 0
+    for i in _live(g, outs):
+        op, args, _ = g.nodes[i]
+        if op in ("const", "in"):
+            continue
+        if not df:
+            n += 1
+        elif op == "pow":
+            n += DF_OPS["mul"] * (2 * args[1].bit_length() - 2)
+        else:
+            n += DF_OPS[op]
+    return n
+
+
+def _eval_ops(plan, s, mode, cols=False, dfsys=False):
+    """Operations of one evaluation of subsystem ``s`` in ``mode`` (False
+    plain, True compensated, "df", "df_res") with its Newton step: q, the
+    physics, J = Jq Fq, the residual statistics and the elimination (with
+    the sensitivity columns; in df for a df-solve subsystem's df system)."""
+    nn, nq, np_ = s["nn"], s["nq"], s["np"]
+    nz_fq = sum(1 for row in s["fq"] for v in row if not _czero(v))
+    ops = 2 * nz_fq * nn + 3 * nn * nq
+    if mode is False:
+        ops += 2 * nz_fq + _physics_ops(s, False)
+    else:
+        ops += _eft_ops(s["fq_sp"])
+        if mode is True:
+            ops += _physics_ops(s, False) + 2 * nn * nq
+        else:
+            if mode == "df_res":
+                ops += (_physics_ops(s, True, jq=False)
+                        + _physics_ops(s, False, res=False) + nn)
+            else:
+                ops += _physics_ops(s, True) + nn + nn * nq
+    m = 1
+    if cols and np_:
+        m += np_
+        ops += 2 * nn * sum(1 for row in s["pexp"] for v in row
+                            if not _czero(v))
+    if dfsys:
+        ops += (DF_OPS["mul"] + DF_OPS["add"]) * nz_fq * nn \
+            + DF_SOLVE_OP * _solve_ops(nn, m)
+    else:
+        ops += _solve_ops(nn, m)
+    return ops
+
+
 def op_counts(plan):
     """Float operations of the fused step, counted from the code this module
-    emits: ``(per_sample, per_eval)`` with ``per_sample`` the work every
-    lane-sample does once (the EFT dots of p, pfull, the output row and the
-    state update) and ``per_eval[k]`` one plain evaluation of subsystem k
-    with its Newton step (q = pf + Fq z, the element physics, J = Jq Fq,
-    the residual statistics, the elimination).  A lower bound of the
-    kernel's work: the verdict's df arithmetic counts as f32."""
+    emits and the configuration of ``plan``: ``(per_sample, per_eval)``.
+    ``per_sample`` is the work every lane-sample does once: the dots of p,
+    pfull, the output row and the state update (EFT or plain), and per
+    subsystem what the configuration adds to its evaluations for certain --
+    the verdict's evaluation in its tier (compensated, df or df residual,
+    with the df elimination of a df-solve subsystem) and the polish loop's
+    mandatory first evaluation in the loop's tier -- counted beyond a plain
+    evaluation.  ``per_eval[k]`` is one plain evaluation of subsystem k
+    with its Newton step.  The measured evaluations per lane-sample times
+    ``per_eval`` plus ``per_sample`` is a lower bound of the kernel's
+    work."""
+    dots = _eft_ops if plan.dfs else _plain_ops
+    coef = (lambda sp, raw: sp) if plan.dfs else (lambda sp, raw: raw)
     per_sample = 0
     per_eval = []
     for s in plan.subs:
-        nn, nq = s["nn"], s["nq"]
-        per_sample += _eft_ops(s["dq_sp"] + s["eq_sp"] + s["fqprev_sp"]
-                               + s["pexp_sp"])
-        g, res, Jq = record(s["nl"], nq)
-        outs = list(res) + [i for row in Jq for i in row]
-        nl_ops = sum(1 for i in _live(g, outs)
-                     if g.nodes[i][0] not in ("const", "in"))
-        nz_fq = sum(1 for row in s["fq"] for v in row if not _czero(v))
-        per_eval.append(2 * nz_fq + nl_ops + 2 * nz_fq * nn
-                        + 3 * nn * nq + _solve_ops(nn, 1))
-    for m in (plan.dy_sp, plan.ey_sp, plan.fy_sp, plan.a_sp, plan.b_sp,
-              plan.c_sp):
-        per_sample += _eft_ops(m)
+        per_sample += dots(coef(s["dq_sp"], s["dq"])
+                           + coef(s["eq_sp"], s["eq"])
+                           + coef(s["fqprev_sp"], s["fqprev"]))
+        per_sample += (_eft_ops(s["pexp_sp"]) if plan.comp
+                       else _plain_ops(s["pexp"]) + s["nq"])
+        plain = _eval_ops(plan, s, False)
+        per_eval.append(plain)
+        with_cols = plan.extrap
+        if plan.pol_mode is not False:
+            per_sample += _eval_ops(
+                plan, s, plan.pol_mode,
+                cols=with_cols and plan.verdict is None,
+                dfsys=plan.pol_mode == "df" and s["df_slv"]) - plain
+        if plan.verdict is not None:
+            vmode = "df" if s["df_slv"] else plan.verdict
+            per_sample += _eval_ops(plan, s, vmode, cols=with_cols,
+                                    dfsys=s["df_slv"]) - plain
+    per_sample += dots(coef(plan.dy_sp, plan.dy) + coef(plan.ey_sp, plan.ey)
+                       + coef(plan.fy_sp, plan.fy) + coef(plan.a_sp, plan.a)
+                       + coef(plan.b_sp, plan.b) + coef(plan.c_sp, plan.c))
     return per_sample, per_eval

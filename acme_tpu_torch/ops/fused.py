@@ -11,11 +11,12 @@ update -- with
     package's, line for line);
   * a float32 state carried as unevaluated (hi, lo) pairs, read out and
     updated with error-free-transform (EFT) dot products;
-  * the two-tier Newton of the JAX kernel: one unguarded fast step, a
-    plain-f32 polish loop, a compensated or double-float ("df") verdict
-    with a df elimination on structurally ill-conditioned subsystems,
-    and, for lanes that fail the keep test, the gated Newton ->
-    homotopy -> df-Newton rescue ladder;
+  * the two-tier Newton of the JAX kernel in every configuration of its
+    knobs but one (``fast_verify="group"`` with a fast path): unguarded
+    fast steps or the robust path every sample, a polish loop in plain,
+    compensated or double-float ("df") physics, no verdict or a
+    compensated, df or df-residual one with df eliminations, and the
+    gated Newton -> homotopy -> df-Newton rescue ladder;
   * the two-phase power-up of a cold run: its first samples go through a
     sibling runner whose step enters through that ladder every sample,
     starts at the last solution and ends in a df verdict.
@@ -65,70 +66,85 @@ LAUNCHES = collections.Counter()
 # CUDA events, recorded on the launch stream just around the kernel
 LAUNCH_EVENTS = None
 
-_STEP = "ROADMAP Queue 2: the other step configurations"
-# each knob: the values of it that the port runs, and where the rest are
+# the two configurations the port does not run yet, and where they are
 # queued
-_KNOBS = {
-    "extrapolate": ((True, "track"), _STEP),
-    "compensated": ((True,), _STEP),
-    "df_state": ((True,), _STEP),
-    "df_polish": (("comp_final", "final"), _STEP),
-    "df_solve": (("auto",), _STEP),
-    "fast_verify": (("merge",), _STEP),
-    "fast_keep": (("gate",), _STEP),
-    "polish_only": ((False,), _STEP),
-    "pivot": ((True,), _STEP),
-    "verdict_jac": (("df",), _STEP),
-    "rel_tol": (((None, None, None),), _STEP),
-    "mesh": ((None,), "ROADMAP Queue 1: lanes split across GPUs"),
-}
+_GROUPS = ("ROADMAP Queue 2 item 5: lane groups for fast_verify=\"group\" "
+           "with a fast path")
+_MESH = "ROADMAP Queue 1 item 2: lanes split across GPUs"
 # the conservative configuration of the two-phase power-up (fused.py:406-416)
 _POWERUP_SAFE = dict(fast_iters=0, extrapolate="track", polish_only=False,
                      df_polish="final")
 # the integer power-up overrides and the runner attribute each sets
-# (fused.py:2831-2861); the step knobs of _KNOBS but df_solve, rel_tol
-# and mesh are overrides too
+# (fused.py:2831-2846)
 _POWERUP_INTS = {"newton_iters": "K", "fast_iters": "fast_iters",
                  "polish_iters": "polish_iters",
                  "polish_fixed": "polish_fixed",
                  "stall_strikes": "stall_strikes",
                  "plateau_strikes": "plateau_strikes",
                  "verdict_refine": "verdict_refine"}
+_POWERUP_BOOLS = ("compensated", "pivot", "df_state", "polish_only")
 
 
-def _check_ported(knob, val):
-    ported, queue = _KNOBS[knob]
-    if not any(val is ok or (type(val) is type(ok) and val == ok)
-               for ok in ported):
+def _cast_df_polish(v, compensated):
+    """The JAX package's cast of ``df_polish`` (fused.py:492-495): a verdict
+    tier by name, else a bool; without the compensated pipeline, False."""
+    if v in ("final", "plain_final", "comp_final"):
+        return v if compensated else False
+    return bool(v) and compensated
+
+
+def _check_choice(knob, v, choices):
+    if v not in choices:
+        raise ValueError(f"{knob} must be {'|'.join(choices)}, got {v!r}")
+
+
+def _check_step(fast_iters, polish_only, fast_verify, compensated,
+                df_polish):
+    """Raise for the step configurations the port does not run."""
+    if fast_verify == "group" and (fast_iters > 0 or polish_only):
+        # the JAX kernel redoes the whole lane group when one lane fails
+        # (fused.py:2139-2146), so a lane's result depends on its group
         raise NotImplementedError(
-            f"FusedRunner({knob}={val!r}) is not ported to acme_tpu_torch "
-            f"yet ({queue})")
+            "FusedRunner(fast_verify=\"group\") with a fast path "
+            f"(fast_iters={fast_iters}, polish_only={polish_only}) is not "
+            f"ported to acme_tpu_torch yet ({_GROUPS}); use "
+            "fast_verify=\"merge\"")
+    if df_polish is not False and not compensated:
+        # the JAX kernel would evaluate a compensated q it never built
+        raise ValueError("df_polish needs compensated=True")
 
 
-def _powerup_overrides(powerup):
-    """The sibling runner's settings for ``powerup`` ("safe" or a dict of
-    overrides), cast as the JAX package casts them (fused.py:2831-2864):
-    unknown keys raise ValueError, values the port does not run raise
-    NotImplementedError."""
-    out, unknown = {}, []
-    for key, v in dict(_POWERUP_SAFE if powerup == "safe"
-                       else powerup).items():
+def _powerup_overrides(cfg, r):
+    """The sibling runner's attributes for the power-up configuration
+    ``cfg`` (a dict of overrides) of runner ``r``, cast as the JAX package
+    casts them (fused.py:2831-2864, in its order: ``df_polish`` degrades
+    to False without ``r``'s compensated pipeline, ``verdict_jac`` to "df"
+    with a df solve); unknown keys raise ValueError."""
+    cfg = dict(cfg)
+    out = {}
+    for key in list(cfg):
         if key in _POWERUP_INTS:
-            out[_POWERUP_INTS[key]] = int(v)
-        elif key in _KNOBS and key not in ("df_solve", "rel_tol", "mesh"):
-            if key == "extrapolate":
-                v = "track" if v == "track" else bool(v)
-            elif key == "df_polish":
-                v = v if v in ("final", "plain_final", "comp_final") \
-                    else bool(v)
-            else:
-                v = type(_KNOBS[key][0][0])(v)
-            _check_ported(key, v)
-            out[key] = v
-        else:
-            unknown.append(key)
-    if unknown:
-        raise ValueError(f"unknown powerup override(s): {sorted(unknown)}")
+            out[_POWERUP_INTS[key]] = int(cfg.pop(key))
+    if "df_polish" in cfg:
+        out["df_polish"] = _cast_df_polish(cfg.pop("df_polish"),
+                                           r.compensated)
+    for key, choices in (("fast_verify", ("group", "merge", "always")),
+                         ("fast_keep", ("gate", "tol"))):
+        if key in cfg:
+            out[key] = str(cfg.pop(key))
+            _check_choice(key, out[key], choices)
+    if "extrapolate" in cfg:
+        v = cfg.pop("extrapolate")
+        out["extrapolate"] = "track" if v == "track" else bool(v)
+    for key in _POWERUP_BOOLS:
+        if key in cfg:
+            out[key] = bool(cfg.pop(key))
+    if "verdict_jac" in cfg:
+        v = str(cfg.pop("verdict_jac"))
+        _check_choice("verdict_jac", v, ("df", "plain"))
+        out["verdict_jac"] = "df" if r.df_solve else v
+    if cfg:
+        raise ValueError(f"unknown powerup override(s): {sorted(cfg)}")
     return out
 
 
@@ -220,26 +236,32 @@ class FusedRunner:
     keep the topology).  ``device`` holds
     the state and outputs: a CUDA device (the default; without a card the
     constructor raises) runs the kernel, ``device="cpu"`` the plain
-    version.  The defaults are the production configuration of the
-    JAX package's bench (``fast_iters=1``, ``polish_fixed=2``,
-    ``df_polish="comp_final"``, ``df_solve="auto"``, ``fast_verify="merge"``).
+    version.  Every other keyword and its default is the JAX package's
+    (``acme_tpu.ops.fused.FusedRunner``): the robust path every sample
+    (``fast_iters=0``), an early-exit polish loop (``polish_fixed=0``) in
+    double-float physics (``df_polish=True``).  The JAX bench's production
+    configuration is ``acme_tpu_torch.sweeps.PRODUCTION``.  Not ported:
+    ``fast_verify="group"`` with a fast path, and ``mesh`` (ROADMAP Queue
+    1 item 2); ``mesh_axis`` names an axis of ``mesh``, so it is accepted
+    for the JAX package's signature and read nowhere until then.
     """
 
     def __init__(self, model, lane_input_idx: Sequence[int] = (), *,
                  device="cuda", lane_scale_idx: Sequence[int] = (),
                  newton_iters: int = 192, tol: float = 1e-9,
                  step_clip: float = 1.0, center: bool = True,
-                 center_u=None, extrapolate=True, refine: int = 1,
+                 center_u=None, extrapolate: bool = True, refine: int = 1,
                  compensated: bool = True, df_state: bool = True,
                  rel_tol: float = None, rel_gate: float = None,
                  rel_tol_polish: float = None, polish_iters: int = 10,
-                 polish_fixed: int = 2, df_polish="comp_final",
+                 polish_fixed: int = 0, df_polish: bool = True,
                  df_solve="auto", verdict_jac: str = "df",
                  verdict_refine: int = None, pivot: bool = True,
-                 fast_iters: int = 1, fast_verify: str = "merge",
+                 fast_iters: int = 0, fast_verify: str = "group",
                  polish_only: bool = False, fast_keep: str = "gate",
                  stall_strikes: int = 2, plateau_strikes: int = 6,
-                 powerup=None, powerup_samples: int = 4096, mesh=None):
+                 powerup=None, powerup_samples: int = 4096, mesh=None,
+                 mesh_axis: str = "dp"):
         # per-lane model matrices (fused.py:331-348): a list of
         # same-topology models; every prepared coefficient that differs
         # between them becomes a per-lane (hi, lo) table entry, equal ones
@@ -255,18 +277,13 @@ class FusedRunner:
                     "per-lane models must share dimensions/decomposition")
         self.models = models
         model = m0
-        if extrapolate != "track":
-            extrapolate = bool(extrapolate)
-        for knob, val in (("extrapolate", extrapolate),
-                          ("compensated", compensated),
-                          ("df_state", df_state), ("df_polish", df_polish),
-                          ("df_solve", df_solve),
-                          ("fast_verify", fast_verify),
-                          ("fast_keep", fast_keep),
-                          ("polish_only", polish_only), ("pivot", pivot),
-                          ("verdict_jac", verdict_jac), ("mesh", mesh),
-                          ("rel_tol", (rel_tol, rel_gate, rel_tol_polish))):
-            _check_ported(knob, val)
+        if mesh is not None:
+            raise NotImplementedError(
+                "FusedRunner(mesh=...) is not ported to acme_tpu_torch yet "
+                f"({_MESH})")
+        _check_choice("fast_verify", fast_verify, ("group", "merge", "always"))
+        _check_choice("fast_keep", fast_keep, ("gate", "tol"))
+        _check_choice("verdict_jac", verdict_jac, ("df", "plain"))
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -274,14 +291,31 @@ class FusedRunner:
                 'pass device="cpu" for the plain version')
         self.model = model
         self.K = int(newton_iters)
-        # 0: no unguarded fast step, the robust path (gated Newton,
-        # homotopy, df Newton) enters every sample (fused.py:2147-2151)
+        # the step configuration, cast as the JAX package casts it
+        # (fused.py:349-547); fast_iters=0 enters the robust path (gated
+        # Newton, homotopy, df Newton) every sample
         self.fast_iters = int(fast_iters)
+        self.polish_only = bool(polish_only)
+        self.fast_verify = fast_verify
+        self.fast_keep = fast_keep
         # "track": start Newton at zw but keep (zw, wp, dzdp) up to date
-        # for a sibling that extrapolates (fused.py:430-440)
-        self.extrapolate = extrapolate
-        # "final": compensated polish loop + one full-df verdict
-        self.df_polish = df_polish
+        # for a sibling that extrapolates; False: neither use nor maintain
+        self.extrapolate = "track" if extrapolate == "track" \
+            else bool(extrapolate)
+        self.compensated = bool(compensated)
+        self.df_state = bool(df_state)
+        self.pivot = bool(pivot)
+        self.rel_tol = rel_tol
+        self.rel_gate = rel_gate
+        self.rel_tol_polish = rel_tol_polish
+        self.df_polish = _cast_df_polish(df_polish, self.compensated)
+        if df_solve == "auto":
+            self.df_solve = "auto" if self.df_polish in (
+                True, "final", "plain_final", "comp_final") else False
+        else:
+            self.df_solve = bool(df_solve) and \
+                self.df_polish in (True, "final", "plain_final")
+        self.verdict_jac = "df" if self.df_solve is True else verdict_jac
         # two-phase power-up: the first powerup_samples of a cold run go
         # through a sibling runner with the conservative configuration
         # (fused.py:384-418); "steady" starts every lane at its own steady
@@ -289,7 +323,8 @@ class FusedRunner:
         self.powerup_steady = powerup == "steady"
         self._pw_overrides = None
         if powerup is not None and not self.powerup_steady:
-            self._pw_overrides = _powerup_overrides(powerup)
+            self._pw_overrides = _powerup_overrides(
+                _POWERUP_SAFE if powerup == "safe" else powerup, self)
         self.powerup_samples = int(powerup_samples)
         self._pw_runner = None
         self.stall_strikes = int(stall_strikes)
@@ -301,6 +336,12 @@ class FusedRunner:
         self.polish_fixed = max(0, int(polish_fixed))
         self.verdict_refine = int(refine if verdict_refine is None
                                   else verdict_refine)
+        step = ("fast_iters", "polish_only", "fast_verify", "compensated",
+                "df_polish")
+        _check_step(*(getattr(self, k) for k in step))
+        if self._pw_overrides is not None:
+            _check_step(*(self._pw_overrides.get(k, getattr(self, k))
+                          for k in step))
         self.lane_idx = tuple(int(i) for i in lane_input_idx)
         # lane-scaled inputs: time rows multiplied by a per-lane constant
         # (one audio stream fanned out at many input levels)
@@ -511,9 +552,13 @@ class FusedRunner:
             except Exception:
                 return np.zeros(m.nx), np.zeros(self.nn_total)
 
-    def _floor_measure(self, kk, q64, comp=True, model=None):
+    def _floor_measure(self, kk, q64, comp=None, model=None):
         """Empirical float32 residual floor at the points ``q64`` (nq, L),
-        from the element physics in simulated kernel arithmetic."""
+        from the element physics in simulated kernel arithmetic, with the
+        first-order q_lo compensation when ``comp`` (default: the runner's
+        ``compensated``, fused.py:740-757)."""
+        if comp is None:
+            comp = self.compensated
         nl = (model or self.model).nl_funcs[kk]
         res64, _ = nl(np, q64)
         qhi = q64.astype(np.float32)
@@ -790,15 +835,13 @@ class FusedRunner:
         """The sibling runner with the power-up configuration
         (fused.py:2819-2866): it shares the prepared coefficients and
         centering with this runner, read-only, and has its own ``_Plan``
-        (so its own kernel build, ``fused_sweep_powerup``).  The step
-        knobs that the port runs at one value only are checked, not set."""
+        (so its own kernel build, ``fused_sweep_powerup``)."""
         if self._pw_runner is None:
             r = copy.copy(self)
             r._pw_runner = None
             r._pw_overrides = None
             for attr, v in self._pw_overrides.items():
-                if hasattr(r, attr):
-                    setattr(r, attr, v)
+                setattr(r, attr, v)
             r.plan = _Plan(r)
             r.plan.kernel_name = "fused_sweep_powerup"
             self._pw_runner = r
@@ -887,17 +930,49 @@ class _Plan:
         self.time_idx, self.lane_idx = r.time_idx, r.lane_idx
         self.scale_idx = r.scale_idx
         self.K, self.fast = r.K, max(0, r.fast_iters)
-        # the step configuration (fused.py:863-864, :1339-1371): start at
-        # the extrapolated point or at zw; with df_polish="final" the
-        # polish loop evaluates compensated (to 3e-8 of the term scale)
-        # and every subsystem's verdict in df physics, with "comp_final"
-        # plain (to 3e-7) and df only for the fragile subsystems
+        # the step configuration (fused.py:857-867, :1339-1371, :2018-2151)
+        comp = self.comp = r.compensated
+        dfp = r.df_polish
+        plain_pol = dfp in ("plain_final", "comp_final")
+        self.df_final = dfp in ("final", "plain_final", "comp_final")
+        self.dfs = r.df_state
+        # maintain the (zw, wp, dzdp) origin; start at the extrapolated
+        # point (True) or at zw ("track")
+        self.extrap = bool(r.extrapolate)
         self.extrap_use = r.extrapolate is True
-        self.df_final = r.df_polish == "final"
-        self.rel_tol_pol = 3.0e-8 if self.df_final else 3.0e-7
+        self.pivot = r.pivot
+        # the fast path: fast unguarded steps (none with polish_only), the
+        # polish, the keep test (at the gate or the polish target) and the
+        # redo of the robust path for the lanes that fail it, or for all
+        # ("always")
+        self.fast_path = self.fast > 0 or r.polish_only
+        self.verify_always = r.fast_verify == "always"
+        self.keep_tol = r.fast_keep == "tol"
+        # relative tolerances, each capped at its anchor
+        self.rel_tol = 3.0e-7 if r.rel_tol is None else float(r.rel_tol)
+        self.rel_gate = 4.0e-6 if r.rel_gate is None else float(r.rel_gate)
+        self.rel_gate_f = (float(r.rel_gate) if r.rel_gate is not None
+                           else (2.0e-6 if comp else 4.0e-6))
+        self.rel_tol_pol = (float(r.rel_tol_polish)
+                            if r.rel_tol_polish is not None
+                            else 3.0e-7 if plain_pol
+                            else 3.0e-8 if self.df_final
+                            else 3.0e-9 if dfp
+                            else (3.0e-8 if comp else 3.0e-7))
+        # evaluation modes: False plain, True compensated, "df" double-float
+        # physics, "df_res" a df residual with a plain Jacobian.  The
+        # polish loop's; the verdict's (None: no verdict; a df-solve
+        # subsystem's is always "df"); the df rescue's
+        self.pol_mode = False if plain_pol else (
+            comp if self.df_final else ("df" if dfp else comp))
+        self.verdict = None if not self.df_final else (
+            True if dfp == "comp_final" else
+            ("df" if r.verdict_jac == "df" else "df_res"))
+        self.rescue_mode = "df" if dfp else self.pol_mode
         # "fused_sweep_powerup" for the power-up sibling's plan
         self.kernel_name = "fused_sweep"
-        self.P_pol, self.P_fix = r.polish_iters, r.polish_fixed
+        self.P_pol = r.polish_iters if comp else 1
+        self.P_fix = r.polish_fixed if comp else 0
         self.refine, self.vrefine = r.refine, r.verdict_refine
         self.stall_strikes = float(r.stall_strikes)
         self.plateau_strikes = float(r.plateau_strikes)
@@ -925,9 +1000,14 @@ class _Plan:
                 pexp=PS["pexp"], q0=PS["q0"],
                 nl=m.nl_funcs[k], nn=nn, np=np_, nq=nq,
                 off=zoff, poff=poff, doff=doff,
-                zclip=[r.step_clip] * nn,
-                df_slv=bool(r.sub_fragile[k]),
-                fold=bool(r.sub_fragile[k] and r.sub_cond_eq[k] > 1e4))
+                zclip=[r.step_clip] * nn)
+            # the df solve of the verdict: every subsystem with
+            # df_solve=True, the structurally ill-conditioned ones with
+            # "auto"; the fold loop above cond_eq 1e4 (fused.py:1350-1352,
+            # :1953)
+            s["df_slv"] = bool(r.df_solve is True or (
+                r.df_solve == "auto" and r.sub_fragile[k]))
+            s["fold"] = s["df_slv"] and r.sub_cond_eq[k] > 1e4
             for key in ("dq", "eq", "fqprev", "fq", "pexp"):
                 s[key + "_sp"] = spl(s[key])
             s["q0_sp"] = [SP(v) for v in s["q0"]]
@@ -1210,10 +1290,17 @@ class _SubSolver:
                 res_df, Jq_df = s["nl"](dfm, dfm.DF(qv, torch.stack(q_lo)))
             res = res_df.hi + res_df.lo
             Jq = Jq_df.hi + Jq_df.lo
+        elif cmode == "df_res":
+            # the df residual with the plain Jacobian of the same point
+            # (verdict_jac="plain", fused.py:1240-1254)
+            with self.on_device():
+                res_df, _ = s["nl"](dfm, dfm.DF(qv, torch.stack(q_lo)))
+                _, Jq = s["nl"](txp, qv)
+            res = res_df.hi + res_df.lo
         else:
             with self.on_device():
                 res, Jq = s["nl"](txp, qv)
-        if cmode and cmode != "df":
+        if cmode and cmode not in ("df", "df_res"):
             corr = []
             for ai in range(nn):
                 acc = res[ai]
@@ -1280,9 +1367,10 @@ class _SubSolver:
         it = 0
         while it < K and bool(live.any()):
             res, J, _, resmax, scale, _ = self.eval_at(z, False)
-            tol_eff = _clip(3.0e-7 * scale, self.ltol, 1e4 * self.ltol)
-            gate_eff = _clip(4.0e-6 * scale, self.lgate, 1e4 * self.lgate)
-            dz = solve_rows(J, [res], refine=0, pivot=True)[0]
+            tol_eff = _clip(plan.rel_tol * scale, self.ltol, 1e4 * self.ltol)
+            gate_eff = _clip(plan.rel_gate * scale, self.lgate,
+                             1e4 * self.lgate)
+            dz = solve_rows(J, [res], refine=0, pivot=plan.pivot)[0]
             stall_any = resmax >= 0.995 * prev
             stalled = stall_any & (resmax < gate_eff)
             strikes_n = torch.where(stalled, strikes + 1.0, zero)
@@ -1334,7 +1422,8 @@ class _SubSolver:
                 base = self.env.cval(s["q0"][ci])
                 pf.append(base if acc is None else acc + base)
             res, J, _, resmax, scale, _ = self.eval_at(z_h, False, pf=pf)
-            gate_eff = _clip(4.0e-6 * scale, self.lgate, 1e4 * self.lgate)
+            gate_eff = _clip(self.plan.rel_gate * scale, self.lgate,
+                             1e4 * self.lgate)
             ok = resmax < gate_eff
             dz = solve_rows(J, [res], refine=0, pivot=True)[0]
             bad = ~torch.isfinite(resmax) | ~_all_finite(dz)
@@ -1373,7 +1462,8 @@ class _SubSolver:
             act = need & ~(rm < g0)
             if not bool(act.any()):
                 break
-            res, J, _, resmax, _, _ = self.eval_at(zs, "df")
+            res, J, _, resmax, _, _ = self.eval_at(zs,
+                                                   self.plan.rescue_mode)
             ok = resmax < g0
             dz = solve_rows(J, [res], refine=self.plan.refine, pivot=True)[0]
             bad = ~torch.isfinite(resmax) | ~_all_finite(dz)
@@ -1402,13 +1492,18 @@ class _SubSolver:
         nn, np_, nq = s["nn"], s["np"], s["nq"]
         res_c, J, Jq, resmax_c, scale_c, dfsys = self.eval_at(
             zs, mode, want_dfsys=(mode == "df" and s["df_slv"]))
-        lgate_eff = _clip(4.0e-6 * scale_c, self.lgate, 1e4 * self.lgate)
-        gate_eff_f = _clip(2.0e-6 * scale_c, self.gate_v, 1e4 * self.gate_v)
+        lgate_eff = _clip(plan.rel_gate * scale_c, self.lgate,
+                          1e4 * self.lgate)
+        gate_eff_f = _clip(plan.rel_gate_f * scale_c, self.gate_v,
+                           1e4 * self.gate_v)
         tol_pol = _clip(plan.rel_tol_pol * scale_c, self.ptol,
                         1e4 * self.ptol)
-        ltol_eff = _clip(3.0e-7 * scale_c, self.ltol, 1e4 * self.ltol)
+        ltol_eff = _clip(plan.rel_tol * scale_c, self.ltol, 1e4 * self.ltol)
+        # the sensitivity columns J \ Jp ride along when the origin is
+        # maintained (extrapolate True or "track")
+        with_cols = plan.extrap and np_
         rhs = [res_c]
-        if np_ and not light:
+        if with_cols and not light:
             for bi in range(np_):
                 col = []
                 for ai in range(nn):
@@ -1432,9 +1527,9 @@ class _SubSolver:
             X = solve_rows(J, rhs, refine=rf, pivot=True)
         dz = X[0]
         fin = torch.isfinite(resmax_c) & _all_finite(dz)
-        if np_ and not light:
+        if with_cols and not light:
             cols = [[X[1 + bi][ai] for ai in range(nn)] for bi in range(np_)]
-        elif np_:
+        elif with_cols:
             nan = torch.full_like(self.like, float("nan"))
             cols = [[nan] * nn for _ in range(np_)]
         else:
@@ -1442,8 +1537,8 @@ class _SubSolver:
         return (dz, cols, resmax_c, lgate_eff, gate_eff_f, tol_pol,
                 ltol_eff, fin)
 
-    # polish_all with the comp_final or final verdict and the fold loop
-    # (fused.py:1750-2016)
+    # polish_all: the polish loop with its unrolled prefix, then the
+    # verdict (comp, df or df_res) and the fold loop (fused.py:1750-2016)
     def polish_all(self, zs):
         s, plan = self.s, self.plan
         nn, np_ = s["nn"], s["np"]
@@ -1451,7 +1546,8 @@ class _SubSolver:
         big = torch.full_like(like, 3e38)
         zero = torch.zeros_like(like)
         zc = s["zclip"]
-        st = dict(z=list(zs), cols=[[zero] * nn for _ in range(np_)],
+        ncols = np_ if plan.extrap else 0
+        st = dict(z=list(zs), cols=[[zero] * nn for _ in range(ncols)],
                   rm=big, rm1=big, tl1=self.ltol.clone(),
                   lg=self.lgate.clone(), gf=self.gate_v.clone(),
                   tp=self.ptol.clone(), pfrz=zero, pstall=zero, k=zero)
@@ -1467,7 +1563,8 @@ class _SubSolver:
                 if not bool(act_l.any()):
                     break
             (dz, cols, resmax_c, lgate_eff, gate_eff_f, tol_pol, ltol_eff,
-             fin) = self.polish_eval(st["z"], plan.df_final, light=True)
+             fin) = self.polish_eval(st["z"], plan.pol_mode,
+                                     light=plan.df_final)
             not_contracting = fin & (resmax_c >= 0.7 * st["rm"])
             pfrz = torch.maximum(st["pfrz"], not_contracting.float())
             unclip = None
@@ -1490,11 +1587,12 @@ class _SubSolver:
                        pstall=pstall, k=st["k"] + 1.0)
             st = {key: _sel(act_l, new[key], st[key]) for key in st}
             it += 1
-        # the verdict: one df evaluation (fragile subsystems, or all with
-        # df_polish="final") or compensated one + guarded final step
-        vmode = "df" if (s["df_slv"] or plan.df_final) else True
-        zlo0 = [zero] * nn
-        st["zlo"] = zlo0
+        st["zlo"] = [zero] * nn
+        if plan.verdict is None:
+            return st
+        # the verdict: one evaluation and guarded final step, in df for a
+        # df-solve subsystem, else in the configured tier
+        vmode = "df" if s["df_slv"] else plan.verdict
 
         def vd_pass(st):
             (dzf, colsf, rm_df, lgf, gff, tpf, _tl, finf) = self.polish_eval(
@@ -1535,26 +1633,27 @@ class _SubSolver:
         return st
 
     def fast_entry(self, z0):
-        """The unguarded fast path with the already-converged guard, its
-        polish and the keep/redo under "merge" (fused.py:2018-2146)."""
+        """The fast path: ``fast`` unguarded steps with the
+        already-converged guard (none with polish_only), the polish, the
+        keep test, and the robust path redone for the lanes that fail it
+        ("merge") or for every lane ("always") (fused.py:2018-2146)."""
         plan, nn = self.plan, self.s["nn"]
         zs_cur = z0
         for _ in range(plan.fast):
             res_f, J_f, _, _, _, _ = self.eval_at(zs_cur, False, stats=False)
             rmf = _maxabs(res_f)
-            dzf = solve_rows(J_f, [res_f], refine=0, pivot=True)[0]
+            dzf = solve_rows(J_f, [res_f], refine=0, pivot=plan.pivot)[0]
             okf = _all_finite(dzf) & (rmf >= self.ltol)
             dzf = self.clipdz(dzf)
             zs_cur = [torch.where(okf, zs_cur[ai] - dzf[ai], zs_cur[ai])
                       for ai in range(nn)]
         st = self.polish_all(zs_cur)
         itv = float(plan.fast) + st["k"]
-        ok1 = (st["rm"] < st["gf"]) | ((st["rm1"] < st["tl1"])
+        keep_thr = st["tp"] if plan.keep_tol else st["gf"]
+        ok1 = (st["rm"] < keep_thr) | ((st["rm1"] < st["tl1"])
                                        & (st["pstall"] > 0.5))
-        need = ~ok1
+        need = torch.ones_like(ok1) if plan.verify_always else ~ok1
         if bool(need.any()):
-            # keep/redo under "merge": the robust path, kept only for the
-            # lanes that failed the keep test
             zs4, _, _, itv4 = self.full_solve(zs_cur)
             st2 = self.polish_all(zs4)
             for key in ("z", "zlo", "cols", "rm", "gf", "pstall"):
@@ -1565,28 +1664,36 @@ class _SubSolver:
     def solve(self, p, zw, wp, dzdp):
         """The subsystem's per-sample solve given its p (fused.py:2018-2266).
         Returns (z, zlo, fail, floor, pstall, itv, new zw/wp/dzdp parts)."""
-        s, plan = self.s, self.plan
+        s, plan, env = self.s, self.plan, self.env
         nn, np_, nq = s["nn"], s["np"], s["nq"]
         o, po, do = s["off"], s["poff"], s["doff"]
         zc = s["zclip"]
         self.p, self.zw, self.wp = p, zw, wp
-        # pfull = q0 + Pexp p as an unevaluated (hi, lo) pair
-        p_sp = [_split_rt(pi) for pi in p]
         self.pfull, self.pfull_lo = [], []
-        for ci in range(nq):
-            hi, lo = (_full(v, self.like)
-                      for v in self.env.coef_hi_lo(s["q0_sp"][ci]))
-            for i in range(np_):
-                cs = s["pexp_sp"][ci][i]
-                if not _nz(cs):
-                    continue
-                pr, err, _ = self.env.prod_coef(cs, p[i], *p_sp[i])
-                hi, e2 = _two_sum(hi, pr)
-                lo = lo + (err + e2)
-            self.pfull.append(hi)
-            self.pfull_lo.append(lo)
+        if plan.comp:
+            # pfull = q0 + Pexp p as an unevaluated (hi, lo) pair
+            p_sp = [_split_rt(pi) for pi in p]
+            for ci in range(nq):
+                hi, lo = (_full(v, self.like)
+                          for v in env.coef_hi_lo(s["q0_sp"][ci]))
+                for i in range(np_):
+                    cs = s["pexp_sp"][ci][i]
+                    if not _nz(cs):
+                        continue
+                    pr, err, _ = env.prod_coef(cs, p[i], *p_sp[i])
+                    hi, e2 = _two_sum(hi, pr)
+                    lo = lo + (err + e2)
+                self.pfull.append(hi)
+                self.pfull_lo.append(lo)
+        else:
+            # plain float32 (fused.py:1134-1140)
+            for ci in range(nq):
+                acc = env.dotv(s["pexp"][ci], p)
+                base = env.cval(s["q0"][ci])
+                self.pfull.append(_full(base if acc is None else acc + base,
+                                        self.like))
         # extrapolated warm start, jump capped at 4 trust regions (with
-        # extrapolate="track" the start is zw itself)
+        # extrapolate "track" or False the start is zw itself)
         if np_ and plan.extrap_use:
             dp = [p[i] - wp[po + i] for i in range(np_)]
             z0 = []
@@ -1599,14 +1706,14 @@ class _SubSolver:
                                                    4.0 * zc[i1]))
         else:
             z0 = [zw[o + i1] for i1 in range(nn)]
-        if plan.fast == 0:
+        if plan.fast_path:
+            st, itv = self.fast_entry(z0)
+        else:
             # the robust path from the warm start, then the polish
             # (fused.py:2147-2151)
             zs4, _, _, itv4 = self.full_solve(z0)
             st = self.polish_all(zs4)
             itv = itv4 + st["k"]
-        else:
-            st, itv = self.fast_entry(z0)
         zp, zlo, cols = st["z"], st["zlo"], st["cols"]
         resmax_c, gate_eff_f, pstall = st["rm"], st["gf"], st["pstall"]
         # acceptance, floor certificate, plausibility (fused.py:2153-2266)
@@ -1626,7 +1733,7 @@ class _SubSolver:
         zw_n = [torch.where(ok, zp[i1], zw[o + i1]) for i1 in range(nn)]
         wp_n = [torch.where(ok, p[i2], wp[po + i2]) for i2 in range(np_)]
         dz_n = [dzdp[do + i] for i in range(nn * np_)]
-        if np_:
+        if np_ and plan.extrap:
             okd = ok & conv
             for bi in range(np_):
                 for ai in range(nn):
@@ -1677,7 +1784,14 @@ def plain_run(plan, u, lv, tol, gate, state, coef=None):
         for k, (s, sv) in enumerate(zip(plan.subs, solvers)):
             p = []
             for i in range(s["np"]):
-                if s["p_rows"][i]:
+                if not plan.dfs:
+                    # plain float32 dots (fused.py:1107-1110)
+                    acc = env.dotv(s["dq"][i], x)
+                    acc = env.dotv(s["eq"][i], u_full, acc)
+                    acc = env.dotv(s["fqprev"][i], z_all, acc)
+                    p.append(torch.zeros_like(like) if acc is None
+                             else _full(acc, like))
+                elif s["p_rows"][i]:
                     hi, lo = env.dot_df(s["dq_sp"][i], x, xlo)
                     hi, lo = env.dot_df(s["eq_sp"][i], u_full, init=(hi, lo))
                     hi, lo = env.dot_df(s["fqprev_sp"][i], z_all, z_lo_all,
@@ -1697,25 +1811,46 @@ def plain_run(plan, u, lv, tol, gate, state, coef=None):
             iters[k] += itv.to(torch.int32)
             any_fail = fail_k if any_fail is None else any_fail | fail_k
             any_floor = floor_k if any_floor is None else any_floor | floor_k
-        # EFT output row and state update (fused.py:2268-2342)
-        for oi in range(plan.ny):
-            hi, lo = env.dot_df(plan.dy_sp[oi], x, xlo,
-                                init=env.coef_hi_lo(plan.y0_sp[oi]))
-            hi, lo = env.dot_df(plan.ey_sp[oi], u_full, init=(hi, lo))
-            hi, lo = env.dot_df(plan.fy_sp[oi], z_all, z_lo_all,
-                                init=(hi, lo))
-            ys[t, oi] = _full(hi + lo, like)
-        x_new = []
-        for xi in range(plan.nx):
-            hi, lo = env.dot_df(plan.a_sp[xi], x, xlo,
-                                init=env.coef_hi_lo(plan.x0_sp[xi]))
-            hi, lo = env.dot_df(plan.b_sp[xi], u_full, init=(hi, lo))
-            hi, lo = env.dot_df(plan.c_sp[xi], z_all, z_lo_all,
-                                init=(hi, lo))
-            x_new.append(_two_sum(_full(hi, like), _full(lo, like)))
-        x = [h for h, _ in x_new]
-        xlo = [lo_ for _, lo_ in x_new]
-        z, zlo = z_all, z_lo_all
+        if plan.dfs:
+            # EFT output row and state update (fused.py:2268-2322)
+            for oi in range(plan.ny):
+                hi, lo = env.dot_df(plan.dy_sp[oi], x, xlo,
+                                    init=env.coef_hi_lo(plan.y0_sp[oi]))
+                hi, lo = env.dot_df(plan.ey_sp[oi], u_full, init=(hi, lo))
+                hi, lo = env.dot_df(plan.fy_sp[oi], z_all, z_lo_all,
+                                    init=(hi, lo))
+                ys[t, oi] = _full(hi + lo, like)
+            x_new = []
+            for xi in range(plan.nx):
+                hi, lo = env.dot_df(plan.a_sp[xi], x, xlo,
+                                    init=env.coef_hi_lo(plan.x0_sp[xi]))
+                hi, lo = env.dot_df(plan.b_sp[xi], u_full, init=(hi, lo))
+                hi, lo = env.dot_df(plan.c_sp[xi], z_all, z_lo_all,
+                                    init=(hi, lo))
+                x_new.append(_two_sum(_full(hi, like), _full(lo, like)))
+            x = [h for h, _ in x_new]
+            xlo = [lo_ for _, lo_ in x_new]
+            z, zlo = z_all, z_lo_all
+        else:
+            # plain float32 read-outs, state and z without lo parts
+            # (fused.py:2291-2334)
+            for oi in range(plan.ny):
+                acc = env.dotv(plan.dy[oi], x)
+                acc = env.dotv(plan.ey[oi], u_full, acc)
+                acc = env.dotv(plan.fy[oi], z_all, acc)
+                y0 = env.cval(plan.y0[oi])
+                ys[t, oi] = _full(y0 if acc is None else acc + y0, like)
+            x_new = []
+            for xi in range(plan.nx):
+                acc = env.dotv(plan.a[xi], x)
+                acc = env.dotv(plan.b[xi], u_full, acc)
+                acc = env.dotv(plan.c[xi], z_all, acc)
+                x0 = env.cval(plan.x0[xi])
+                x_new.append(_full(x0 if acc is None else acc + x0, like))
+            x = x_new
+            xlo = [torch.zeros_like(like)] * plan.nx
+            z = z_all
+            zlo = [torch.zeros_like(like)] * plan.nn_total
         if any_fail is not None:
             fails += any_fail.to(torch.int32)
             floored += any_floor.to(torch.int32)

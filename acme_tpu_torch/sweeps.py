@@ -12,6 +12,14 @@ importing the bench.
     key = ref_key("level", "chain", 44100, 44100, 2, levels[i], 1.0, 1.0)
     y_pw, y_st = cache[key + "_pw"], cache[key + "_st"]
 
+The bench runs every sweep in one configuration of ``FusedRunner``, its
+production configuration (``PRODUCTION``; the runner's own defaults are
+the JAX package's, the robust path every sample), and with
+``--compare-verdicts`` the main path again under two stronger verdict
+tiers (``VERDICT_TIERS``).
+
+    fr = FusedRunner(model, **PRODUCTION, **cfg, powerup="safe")
+
 Beside them, the presets sweep, which the bench does not have: a handful
 of knob presets of the pedal (fixed drive and tone, one model each, run as
 the per-lane models of one ``FusedRunner``) over the whole range of input
@@ -34,8 +42,24 @@ from .model import model_matrices
 from .models import superover, superover_model
 
 __all__ = ["build_model", "build_models", "build_presets", "model_spec",
-           "preset_spec", "PRESETS", "lane_grid", "select_parity_lanes",
-           "stress_lanes", "ref_key"]
+           "preset_spec", "PRESETS", "PRODUCTION", "VERDICT_TIERS",
+           "lane_grid", "select_parity_lanes", "stress_lanes", "ref_key"]
+
+# the bench's production configuration of the runner (bench.py:353-362 at
+# its flags' defaults): one unguarded Newton step, a plain polish loop with
+# a two-step unrolled prefix, a compensated verdict with df solves on the
+# ill-conditioned subsystems, and the robust path redone only for the
+# lanes that fail the keep test
+PRODUCTION = dict(newton_iters=192, tol=1e-9, fast_iters=1,
+                  df_polish="comp_final", fast_verify="merge",
+                  polish_only=False, polish_fixed=2, verdict_refine=None,
+                  verdict_jac="df", df_solve="auto")
+
+# ``bench.py --compare-verdicts`` (bench.py:706-731): the main path again
+# under the full-df verdict, and under the full-df verdict with a df
+# elimination on every subsystem, each over PRODUCTION
+VERDICT_TIERS = {"plainfinal": dict(df_polish="plain_final"),
+                 "dfsolve": dict(df_polish="plain_final", df_solve=True)}
 
 # the presets sweep's (drive, tone) pairs: interior pot positions (an end
 # stop changes the circuit's topology), all with the level model's

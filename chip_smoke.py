@@ -13,17 +13,28 @@ Phases, each printed with its seconds:
      the per-lane models of ONE runner: every coefficient that differs
      between them reaches the kernel in two per-lane tables) and the
      un-decomposed Super Over (one 7x7 subsystem);
-  2. the nvcc builds of the fused kernel, all started together: the
-     clipper's, birdie's, the main path's, and for each of the three
-     level-swept models two (the production configuration and the
-     power-up sibling's); meanwhile, in worker processes on the host, the
-     presets path's float64 references;
+  2. the nvcc builds of the fused kernel, started together (at most
+     BUILD_WORKERS at a time): the clipper's, birdie's, the main path's,
+     and for each of the three level-swept models two (the production
+     configuration and the power-up sibling's); then, as their runners
+     are prepared, one build per step configuration of the ablation
+     (``acme_tpu_torch.ablate``: every configuration of the JAX
+     package's ``_ablate.py``, the runner's own defaults and the knob
+     values ``_ablate.py`` does not ablate, equal configurations sharing
+     one build) and of the main path's two
+     stronger verdict tiers (``sweeps.VERDICT_TIERS``); meanwhile, in
+     worker processes on the host, the presets path's float64
+     references;
   4. kernel against its plain torch version on the card: the diode
      clipper (128 lanes x 256 samples), birdie with its volume pot as a
-     lane input (128 x 64), the Super Over (4096 x 64 from the seeds),
+     lane input (128 x 32), the Super Over (4096 x 32 from the seeds),
      and for the level, presets and full models the power-up build
-     (4096 x 64 from cold) and the production build (4096 x 64 from the
-     state the power-up build left);
+     (4096 x 64 from cold; the full model's x 16) and the production
+     build (the next 64 samples, 16 for the full model, from the state
+     the power-up build left); each ablation build as the level
+     model's (4096 x 64 from that state, its power-up build from cold),
+     and the verdict tiers at 4096 x 16 from the seeds; a kernel's time
+     is the median of three launches queued behind a warm-up launch;
   5. the main path: 4096 lanes x 44100 samples from the seeds, chained
      for seven windows as the JAX package's bench chains them, each timed
      whole and kernel alone; window 1 is scored against the committed
@@ -45,15 +56,30 @@ Phases, each printed with its seconds:
   5d. the full path: the un-decomposed Super Over at 4096 input levels,
      the level path's protocol, scored on the 8 lanes the committed
      "scan2_level_full" references cover (windows 1 and 4);
+  5e. the ablation path (``acme_tpu_torch.ablate``'s protocol at full
+     width): the level path's model, lanes and input; one power-up
+     window with the ablation's base configuration, then for each row
+     (``ablate.ROWS``) one warm window and three timed chained windows
+     from that state; its RT-factor per lane, fails, evaluations per
+     sample, dB against the base, and window 4 (the second timed) scored
+     against the level path's "_st" references; base and cf2 held to
+     the level path's gate, every output held finite, the others
+     recorded;
+  5f. the verdict tiers of the JAX bench's ``--compare-verdicts``: the
+     main path again (seven windows from the seeds) under the full-df
+     verdict ("plainfinal") and under it with a df elimination on every
+     subsystem ("dfsolve"), scored and gated as phase 5;
   6. the kernel launch counts of each path, by build (library).
-The "kernels" line has one entry per build of the four paths: the main
-path's, and the production and power-up builds of the level, presets and
-full paths.
+The "kernels" line has one entry per build: the main path's, the
+production and power-up builds of the level, presets and full paths, each
+ablation build (the level path's production build is also the ablation's
+cf2) and its power-up build, and the two verdict tiers' builds.
 Each kernel's bound (the least time the card could take for the same
 work) is the larger of its float operations, counted from the generated
-code (``ops.emit.op_counts``) times the evaluations per lane-sample the
-run measured, over the H100's float32 peak, and its bytes (inputs read
-once, outputs written once) over the card's memory rate.
+code and the build's configuration (``ops.emit.op_counts``: its
+evaluations in their tiers) with the evaluations per lane-sample the run
+measured, over the H100's float32 peak, and its bytes (inputs read once,
+outputs written once) over the card's memory rate.
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 nonzero before it.
 """
@@ -61,6 +87,7 @@ nonzero before it.
 from __future__ import annotations
 
 import copy
+import hashlib
 import json
 import os
 import re
@@ -101,6 +128,21 @@ POWERUP_SAMPLES = 4096
 PRESETS_REF_SAMPLES = POWERUP_SAMPLES + 1024
 # the un-decomposed Super Over: the JAX package has no fused number for it
 FULL_PARITY_WORST_DB = -65.0
+# the ablation path: the base and cf2 (the level path's production build)
+# held to the level path's gate in window 4; every configuration's output
+# finite; the rest recorded
+ABLATION_GATED = ("base", "cf2")
+# phase 4's samples where the plain version takes longest (its time grows
+# with the samples, and with the lanes only through the loops' trips):
+# birdie and the Super Over from the seeds, the full model's builds, a
+# verdict tier (the main path's lanes from the seeds); the others 64
+POTS_CHECK_SAMPLES = 32
+FULL_CHECK_SAMPLES = 16
+TIER_CHECK_SAMPLES = 16
+# phase 4's timed launches of a kernel, queued behind its warm-up launch
+CHECK_LAUNCHES = 3
+# nvcc processes at a time
+BUILD_WORKERS = 12
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): float32
 # outside the tensor cores, and device memory
 PEAK_FP32 = 67e12
@@ -163,20 +205,26 @@ def compare_case(name, fr, u_time, lane_values, state, torch, F, op_counts):
     u, lv, tol, gate = fr.prepare_inputs(u_time, lane_values)
     coef = fr._coef_tables(lv.shape[1])
     state = {k: v.contiguous() for k, v in state.items()}
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    # warm-up launch: the first launch of a library also loads its module
-    F.fused_step(fr.plan, u, lv, tol, gate, state, coef)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    # a warm-up launch (the first launch of a library also loads its
+    # module), then the timed launches queued behind it, each timed alone
+    # (fused.LAUNCH_EVENTS): the card runs them back to back, so the
+    # wrapper's host work stays out of their time
+    F.LAUNCH_EVENTS = []
+    for _ in range(1 + CHECK_LAUNCHES):
+        yk, stk, fk, ik, flk = F.fused_step(fr.plan, u, lv, tol, gate,
+                                            state, coef)
     torch.cuda.synchronize()
+    ms_k = float(np.median([a.elapsed_time(b)
+                            for a, b in F.LAUNCH_EVENTS[1:]]))
+    F.LAUNCH_EVENTS = None
     ev[0].record()
-    yk, stk, fk, ik, flk = F.fused_step(fr.plan, u, lv, tol, gate, state,
-                                        coef)
+    with torch.inference_mode():
+        yp, stp, fp, ip, flp = F.plain_run(fr.plan, u, lv, tol, gate, state,
+                                           coef)
     ev[1].record()
-    yp, stp, fp, ip, flp = F.plain_run(fr.plan, u, lv, tol, gate, state,
-                                       coef)
-    ev[2].record()
     torch.cuda.synchronize()
-    ms_k = ev[0].elapsed_time(ev[1])
-    ms_p = ev[1].elapsed_time(ev[2])
+    ms_p = ev[0].elapsed_time(ev[1])
     yk_ = yk.permute(2, 1, 0).cpu().numpy()
     yp_ = yp.permute(2, 1, 0).cpu().numpy()
     if not np.isfinite(yk_).all():
@@ -355,19 +403,41 @@ def host_reference(spec, inputs):
 
 
 def host_references(pool, specs, levels, lanes, u):
-    """The presets path's references, computed in ``pool``, one task per
+    """The presets path's references, started in ``pool``, one task per
     preset: for each lane in ``lanes`` its model (``specs[i % len(specs)]``)
-    run from cold on ``level x u``."""
+    run from cold on ``level x u``.  Returns a function that waits for
+    them and returns them in the order of ``lanes``."""
     by_model = {}
     for i in lanes:
         by_model.setdefault(i % len(specs), []).append(i)
     futs = {k: pool.submit(host_reference, specs[k],
                            [levels[i] * u for i in mine])
             for k, mine in by_model.items()}
-    refs = {}
-    for k, mine in by_model.items():
-        refs.update(zip(mine, futs[k].result()))
-    return [refs[i] for i in lanes]
+
+    def collect():
+        refs = {}
+        for k, mine in by_model.items():
+            refs.update(zip(mine, futs[k].result()))
+        return [refs[i] for i in lanes]
+    return collect
+
+
+def steady_db(y, keys):
+    """Each lane's max error against its "_st" reference relative to the
+    reference's peak, in dB (phase 5b's window-4 score); y: (lanes, T)."""
+    out = []
+    with np.load(os.path.join(HERE, ".hostref_cache.npz")) as cache:
+        for yl, key in zip(y, keys):
+            ref = cache[key + "_st"]
+            scale = max(float(np.abs(ref).max()), 1e-12)
+            out.append(20 * np.log10(float(np.abs(yl - ref).max()) / scale
+                                     + 1e-300))
+    return out
+
+
+def header_key(plan, model_header):
+    """The build a plan needs: equal headers share one library."""
+    return hashlib.sha256(model_header(plan).encode()).hexdigest()
 
 
 def score_presets(label, lanes, levels, drive, tone, y_first, refs, split,
@@ -410,22 +480,78 @@ def describe(name, m, fr, secs):
         f"cond_eq={[float(f'{c:.3g}') for c in fr.sub_cond_eq]}")
 
 
+def ablation_path(label, abl, base_pu, u, lane_values, lanes, keys, card,
+                  torch, F, ablate, op_counts):
+    """Phase 5e: the base's power-up window, then every row's warm window
+    and three timed windows from that state (``ablate.measure``), each
+    launch timed alone, with the bound of the last.  Returns ({row: its
+    numbers}, the launch counts by build)."""
+    F.LAUNCHES.clear()
+    F.LAUNCH_EVENTS = []
+    state0 = ablate.power_up(base_pu, lane_values, u)
+    out, y_base = {}, None
+    for name, fr in abl.items():
+        n0 = len(F.LAUNCH_EVENTS)
+        r = ablate.measure(fr, u, lane_values, state0, keep=lanes)
+        k_ms = [a.elapsed_time(b) for a, b in F.LAUNCH_EVENTS[n0:]]
+        y = r.pop("y")
+        if name == "base":
+            y_base, db = y, float("nan")
+        else:
+            db = ablate.vs_base_db(y, y_base)
+        # window 4 of the level path's protocol: the second timed window
+        w4 = steady_db(r["kept"][2], keys)
+        b_ms, b_by = bound(fr.plan, len(lane_values), u.shape[1],
+                           r["evals"], F, op_counts)
+        r.update(db=db, w4_worst=max(w4), w4_median=float(np.median(w4)),
+                 kernel_ms=k_ms, bound_ms=b_ms)
+        out[name] = r
+        secs = " ".join(f"{1e3 * x:.1f}" for x in r["secs"])
+        log(ablate.row_line(name, r, db)
+            + f"  window 4 vs _st worst {max(w4):.1f} dB median "
+            f"{np.median(w4):.1f} | floored {r['floored']} | finite "
+            f"{r['finite']} | windows {secs} ms (kernel "
+            f"{' '.join(f'{x:.1f}' for x in k_ms)} ms, bound of the last "
+            f"{b_ms:.3f} ms, {b_by}) | card: {card}")
+        del y
+    launches = dict(F.LAUNCHES)
+    F.LAUNCH_EVENTS = None
+    log(f"[{label}] summary (RT/lane, fails mean / max, evaluations per "
+        "sample, dB against base, window 4 worst / median against the "
+        "float64 references):")
+    for name, r in out.items():
+        log(f"  {name:10s} RT {r['rt']:6.3f}x  fails {r['fails_mean']:7.3f}"
+            f"/{r['fails_max']:5d}  it/s {r['iters_per_sample']:6.3f}  "
+            f"vs-base {r['db']:7.1f} dB  window 4 {r['w4_worst']:7.1f} / "
+            f"{r['w4_median']:7.1f} dB")
+    bad = [n for n, r in out.items() if not r["finite"]]
+    bad += [f"{n} window 4 worst {out[n]['w4_worst']:.1f} dB"
+            for n in ABLATION_GATED
+            if out[n]["w4_worst"] > LEVEL_PARITY_WORST_DB]
+    if bad:
+        raise SmokeFailure(f"{label}: non-finite output or parity outside "
+                           f"{LEVEL_PARITY_WORST_DB} dB: {bad}")
+    return out, launches
+
+
 def main():
+    t_start = time.time()
     import torch
     if not torch.cuda.is_available():
         raise SmokeFailure("no CUDA device: this smoke run needs one GPU")
     sys.path.insert(0, HERE)
-    from acme_tpu_torch import FusedRunner
+    from acme_tpu_torch import FusedRunner, ablate
     from acme_tpu_torch import sweeps as S
     from acme_tpu_torch.convert import load_steady_seed
     from acme_tpu_torch.models import birdie_model, diodeclipper_model
     from acme_tpu_torch.ops import build as B
     from acme_tpu_torch.ops import fused as F
-    from acme_tpu_torch.ops.emit import op_counts
+    from acme_tpu_torch.ops.emit import model_header, op_counts
 
     dev = torch.device("cuda", 0)
     card = smi()
     kind = torch.cuda.get_device_name(0)
+    prod = S.PRODUCTION
 
     t0 = time.time()
     try:
@@ -445,17 +571,22 @@ def main():
          S.model_spec("level", "full", FS)] + pre_specs)
     log(f"[3 model] {3 + len(m_pre)} Super Over models built in "
         f"{time.time() - t0:.1f}s (worker processes)")
+    # the models as built, for the runners of phases 5e and 5f (a runner's
+    # centering runs the model's stateful host solvers)
+    m_so_built, m_lvl_built = copy.deepcopy(m_so), copy.deepcopy(m_lvl)
     t0 = time.time()
     fr_so = FusedRunner(m_so, lane_input_idx=(1, 2), device=dev,
-                        powerup="steady")
-    fr_clip = FusedRunner(diodeclipper_model(), device=dev)
-    fr_bird = FusedRunner(birdie_model(), lane_input_idx=(1,), device=dev)
+                        powerup="steady", **prod)
+    fr_clip = FusedRunner(diodeclipper_model(), device=dev, **prod)
+    fr_bird = FusedRunner(birdie_model(), lane_input_idx=(1,), device=dev,
+                          **prod)
     _, drive, tone, lane_values, _ = S.lane_grid("pots", L_MAIN)
     seed = load_steady_seed(os.path.join(HERE, ".steadyseed_cache.npz"),
                             SEED_TAG, fr_so)
     describe("Super Over (pots, + clipper, birdie, seeds)", m_so, fr_so,
              time.time() - t0)
-    cold = dict(device=dev, powerup="safe", powerup_samples=POWERUP_SAMPLES)
+    cold = dict(device=dev, powerup="safe", powerup_samples=POWERUP_SAMPLES,
+                **prod)
     t0 = time.time()
     levels, _, _, lv_level, lv_cfg = S.lane_grid("level", L_MAIN)
     fr_lvl = FusedRunner(m_lvl, **cold, **lv_cfg)
@@ -484,18 +615,57 @@ def main():
     # each preset's lowest-level and highest-level lane
     n_pre = len(m_pre)
     pre_lanes = list(range(n_pre)) + list(range(L_MAIN - n_pre, L_MAIN))
+    # one nvcc per distinct header: equal configurations share a build
+    builds = {}
+
+    def start(ex, name, r):
+        key = header_key(r.plan, model_header)
+        if key not in builds:
+            builds[key] = (name, ex.submit(B.compile_library, r.plan))
+        return key
+
     # spawned, not forked: this process holds a CUDA context
-    with ThreadPoolExecutor(len(runners)) as ex, ProcessPoolExecutor(
+    with ThreadPoolExecutor(BUILD_WORKERS) as ex, ProcessPoolExecutor(
             n_pre, mp_context=multiprocessing.get_context("spawn")) as pool:
-        futs = {n: ex.submit(B.compile_library, r.plan)
-                for n, r in runners.items()}
-        # while nvcc runs: the presets path's float64 references
+        keys = {n: start(ex, n, r) for n, r in runners.items()}
+        # while nvcc runs: the presets path's float64 references, and the
+        # runners of the step configurations, each build started as its
+        # runner is ready
         t1 = time.time()
         pre_refs = host_references(pool, pre_specs, pre_levels, pre_lanes,
                                    u[:, :PRESETS_REF_SAMPLES])
+        # one runner per row of the ablation (base first), each on its own
+        # copy of the model as built: equal copies give equal coefficients,
+        # so equal configurations get equal headers and share a build
+        rows, abl_skipped = ablate.order(ablate.ROWS)
+        abl = {}
+        for name in rows:
+            abl[name] = FusedRunner(copy.deepcopy(m_lvl_built),
+                                    lane_scale_idx=(0,), device=dev,
+                                    **ablate.row_kwargs(name))
+            runners["ablation " + name] = abl[name]
+            keys["ablation " + name] = start(ex, "ablation " + name,
+                                             abl[name])
+        abl_pu = ablate.base_runner(copy.deepcopy(m_lvl_built), dev)
+        runners["ablation base powerup"] = abl_pu._powerup_runner()
+        keys["ablation base powerup"] = start(
+            ex, "ablation base powerup", runners["ablation base powerup"])
+        tiers, tier_seeds = {}, {}
+        for name, over in S.VERDICT_TIERS.items():
+            tiers[name] = FusedRunner(copy.deepcopy(m_so_built),
+                                      lane_input_idx=(1, 2), device=dev,
+                                      powerup="steady", **{**prod, **over})
+            tier_seeds[name] = load_steady_seed(
+                os.path.join(HERE, ".steadyseed_cache.npz"), SEED_TAG,
+                tiers[name])
+            runners["tier " + name] = tiers[name]
+            keys["tier " + name] = start(ex, "tier " + name, tiers[name])
+        t_runners = time.time() - t1
+        pre_refs = pre_refs()
         t_refs = time.time() - t1
-        libs = {n: f.result() for n, f in futs.items()}
-    for n, path in libs.items():
+        libs = {key: f.result() for key, (_, f) in builds.items()}
+    for key, path in libs.items():
+        name = builds[key][0]
         secs, out = B.LAST_BUILD.get(path, (0.0, "(cached)"))
         # the entry's registers and frame, and any function that spills
         regs = [ln.strip() for ln in out.splitlines()
@@ -506,18 +676,26 @@ def main():
         # of every function's frame: it must fit the limit the launch sets
         frames = sum(int(b) for b in re.findall(r"(\d+) bytes stack frame",
                                                 out))
-        log(f"[2 build] {n} ({runners[n].plan.kernel_name}): nvcc "
-            f"{secs:.1f}s -> {os.path.basename(path)}; stack frames sum to "
-            f"{frames} of the launch's {B.STACK_BYTES} bytes")
+        shared = [n for n, k in keys.items() if k == key]
+        log(f"[2 build] {' = '.join(shared)} "
+            f"({runners[name].plan.kernel_name}): nvcc {secs:.1f}s -> "
+            f"{os.path.basename(path)}; stack frames sum to {frames} of the "
+            f"launch's {B.STACK_BYTES} bytes")
         for ln in regs:
             log(f"    ptxas: {ln}")
         if frames > B.STACK_BYTES:
-            raise SmokeFailure(f"{n}: ptxas stack frames sum to {frames} "
+            raise SmokeFailure(f"{name}: ptxas stack frames sum to {frames} "
                                f"bytes, over the launch's {B.STACK_BYTES}")
-        B.load_kernel(runners[n].plan)
-    log(f"[2 build] {len(libs)} builds, total {time.time() - t0:.1f}s "
-        f"(parallel; beside them {len(pre_lanes)} host references x "
-        f"{PRESETS_REF_SAMPLES} samples in {t_refs:.1f}s)")
+    for r in runners.values():
+        B.load_kernel(r.plan)
+    log(f"[2 build] {len(libs)} builds for {len(runners)} runners, total "
+        f"{time.time() - t0:.1f}s (parallel; beside them "
+        f"{len(abl) + 1 + len(tiers)} runners of the step configurations "
+        f"prepared in {t_runners:.1f}s, and {len(pre_lanes)} host "
+        f"references x {PRESETS_REF_SAMPLES} samples done at "
+        f"{t_refs:.1f}s)")
+    for name in abl_skipped:
+        log(f"[2 build] ablation {name}: skipped ({ablate.SKIPPED[name]})")
 
     t0 = time.time()
     log("[4 kernel vs plain] (card: " + card + ")")
@@ -525,24 +703,48 @@ def main():
     uc = (1.0 * np.sin(2 * np.pi * 1000 / FS * np.arange(Tc)))[None, :]
     compare_case("clipper", fr_clip, uc, np.zeros((128, 0)),
                  fr_clip.initial_state(128), torch, F, op_counts)
-    Tc = 64
-    uc = (0.3 * np.sin(2 * np.pi * 1000 / FS * np.arange(Tc)))[None, :]
+    uc = (0.3 * np.sin(2 * np.pi * 1000 / FS
+                       * np.arange(POTS_CHECK_SAMPLES)))[None, :]
     vols = np.linspace(0.05, 0.95, 128)[:, None]
     compare_case("birdie", fr_bird, uc, vols, fr_bird.initial_state(128),
                  torch, F, op_counts)
     checks = {}
     checks["superover"], _ = compare_case(
-        "superover", fr_so, u[:, :Tc], lane_values, seed, torch, F,
-        op_counts)
-    for n, fr, lv in (("level", fr_lvl, lv_level), ("presets", fr_pre, lv_pre),
-                      ("full", fr_full, lv_level)):
+        "superover", fr_so, u[:, :POTS_CHECK_SAMPLES], lane_values, seed,
+        torch, F, op_counts)
+    Tc = 64
+    powered = {}
+    for n, fr, lv, t in (("level", fr_lvl, lv_level, Tc),
+                         ("presets", fr_pre, lv_pre, Tc),
+                         ("full", fr_full, lv_level, FULL_CHECK_SAMPLES)):
         pr = runners[n + " powerup"]
-        checks[n + " powerup"], st_pw = compare_case(
-            n + " powerup", pr, u[:, :Tc], lv, pr.initial_state(L_MAIN),
+        checks[n + " powerup"], powered[n] = compare_case(
+            n + " powerup", pr, u[:, :t], lv, pr.initial_state(L_MAIN),
             torch, F, op_counts)
-        checks[n], _ = compare_case(n, fr, u[:, Tc:2 * Tc], lv, st_pw, torch,
-                                    F, op_counts)
+        checks[n], _ = compare_case(n, fr, u[:, t:2 * t], lv, powered[n],
+                                    torch, F, op_counts)
     log(f"[4 kernel vs plain] {time.time() - t0:.1f}s")
+    t0 = time.time()
+    # the step configurations' builds, one check each: the ablation's as
+    # the level model's (its power-up build from cold), the verdict tiers
+    # at the main path's lanes from the seeds
+    checked = {keys["level"]: "level", keys["level powerup"]: "level powerup"}
+    for n in list(keys):
+        if not n.startswith(("ablation ", "tier ")) or keys[n] in checked:
+            continue
+        checked[keys[n]] = n
+        fr = runners[n]
+        if n.startswith("tier "):
+            args = (u[:, :TIER_CHECK_SAMPLES], lane_values,
+                    tier_seeds[n[len("tier "):]])
+        elif n.endswith(" powerup"):
+            args = (u[:, :Tc], lv_level, fr.initial_state(L_MAIN))
+        else:
+            args = (u[:, Tc:2 * Tc], lv_level, powered["level"])
+        shared = [m for m, k in keys.items() if k == keys[n]]
+        checks[n], _ = compare_case(" = ".join(shared), fr, *args, torch, F,
+                                    op_counts)
+    log(f"[4 kernel vs plain] step configurations {time.time() - t0:.1f}s")
 
     t0 = time.time()
     lanes = S.select_parity_lanes(L_MAIN, 16, S.stress_lanes("pots", L_MAIN))
@@ -594,37 +796,100 @@ def main():
           LEVEL_WINDOWS, FULL_PARITY_WORST_DB)
     log(f"[5d full path] {time.time() - t0:.1f}s")
 
-    # one entry per build of the four paths: (name, runner key, its path's
-    # launches and how many of them are this build's)
-    builds = [("fused_sweep (Super Over pots, main path)", "superover",
-               main_launches, WINDOWS)]
+
+    t0 = time.time()
+    lanes = S.select_parity_lanes(L_MAIN, 16, S.stress_lanes("level",
+                                                             L_MAIN))
+    abl_out, ablation_launches = ablation_path(
+        "5e ablation path", abl, abl_pu, u, lv_level, lanes,
+        [S.ref_key("level", "chain", FS, T, LEVEL_REPS, levels[i], 1.0, 1.0)
+         for i in lanes], card, torch, F, ablate, op_counts)
+    for name in abl_skipped:
+        log(f"[5e ablation path] {name}: skipped ({ablate.SKIPPED[name]})")
+    log(f"[5e ablation path] {time.time() - t0:.1f}s")
+
+    t0 = time.time()
+    lanes = S.select_parity_lanes(L_MAIN, 16, S.stress_lanes("pots", L_MAIN))
+    tier_launches = {}
+    for name, fr in tiers.items():
+        label = f"5f verdict tier {name}"
+        y_pw, y_st, tier_launches[name], _ = drive_path(
+            label, fr, u, lane_values, tier_seeds[name], WINDOWS, lanes,
+            card, torch, F, op_counts)
+        score(label, lanes,
+              [f"drive {drive[i]:.3f}, tone {tone[i]:.3f}" for i in lanes],
+              y_pw, y_st,
+              [S.ref_key("pots", "chain", FS, T, MAIN_REPS, 1.0, drive[i],
+                         tone[i], powerup="steady") for i in lanes],
+              WINDOWS, PARITY_WORST_DB, PARITY_MEDIAN_DB)
+    log(f"[5f verdict tiers] {time.time() - t0:.1f}s")
+
+    # one entry per build: (name, runner key, the launch counts of the
+    # path it runs on, how many of them are this build's)
+    lib_of = {n: runners[n].plan.cuda_name for n in runners}
+    entries = [("fused_sweep (Super Over pots, main path)", "superover",
+                main_launches, WINDOWS)]
     for n, path, launches in (("level", "level path", level_launches),
                               ("presets", "presets path", presets_launches),
                               ("full", "full path", full_launches)):
-        builds.append((f"fused_sweep ({n} Super Over, {path})", n, launches,
-                       LEVEL_WINDOWS))
-        builds.append((f"fused_sweep_powerup ({n} Super Over, {path})",
-                       n + " powerup", launches, 1))
-    lib_of = {key: runners[key].plan.cuda_name for _, key, _, _ in builds}
-    if len(set(lib_of.values())) != len(builds):
-        raise SmokeFailure(f"builds share a library: {lib_of}")
+        also = " = ablation cf2" if n == "level" else ""
+        entries.append((f"fused_sweep ({n} Super Over, {path}{also})", n,
+                        launches, LEVEL_WINDOWS))
+        entries.append((f"fused_sweep_powerup ({n} Super Over, {path})",
+                        n + " powerup", launches, 1))
+    if len({lib_of[k] for _, k, _, _ in entries}) != len(entries):
+        raise SmokeFailure(f"the paths' builds share a library: {lib_of}")
+    # the ablation path: four windows per row; the base's build also runs
+    # the power-up window's production part, its power-up build the rest
+    rows_of = {}
+    for name in abl:
+        rows_of.setdefault(lib_of["ablation " + name], []).append(name)
+    abl_expected = {lib: 4 * len(rows) for lib, rows in rows_of.items()}
+    abl_expected[lib_of["ablation base"]] += 1
+    abl_expected[lib_of["ablation base powerup"]] = 1
+    for lib, rows in rows_of.items():
+        if lib == lib_of["level"]:
+            continue
+        entries.append((f"fused_sweep (level Super Over, ablation "
+                        f"{' = '.join(rows)})", "ablation " + rows[0],
+                        ablation_launches, abl_expected[lib]))
+    entries.append(("fused_sweep_powerup (level Super Over, ablation base)",
+                    "ablation base powerup", ablation_launches, 1))
+    for name in tiers:
+        entries.append((f"fused_sweep (Super Over pots, verdict tier "
+                        f"{name})", "tier " + name, tier_launches[name],
+                        WINDOWS))
     # one launch per window; a cold path's window 1 adds the power-up
-    for path, launches, keys in (
+    for path, launches, keys_ in (
             ("main path", main_launches, ("superover",)),
             ("level path", level_launches, ("level", "level powerup")),
             ("presets path", presets_launches,
              ("presets", "presets powerup")),
             ("full path", full_launches, ("full", "full powerup"))):
-        expected = {lib_of[k]: n for _, k, _, n in builds if k in keys}
+        expected = {lib_of[k]: n for _, k, _, n in entries if k in keys_}
         log(f"[6 launches] {path}: "
-            f"{ {k: launches.get(lib_of[k], 0) for k in keys} }")
+            f"{ {k: launches.get(lib_of[k], 0) for k in keys_} }")
         if launches != expected:
             raise SmokeFailure(f"{path} launches {launches}, expected "
                                f"{expected}")
+    by_rows = {" = ".join(rows_of.get(lib, ["base powerup"])): n
+               for lib, n in ablation_launches.items()}
+    log(f"[6 launches] ablation path: {by_rows}")
+    if ablation_launches != abl_expected:
+        raise SmokeFailure(f"ablation path launches {ablation_launches}, "
+                           f"expected {abl_expected}")
+    for name in tiers:
+        expected = {lib_of["tier " + name]: WINDOWS}
+        log(f"[6 launches] verdict tier {name}: {tier_launches[name]}")
+        if tier_launches[name] != expected:
+            raise SmokeFailure(f"verdict tier {name} launches "
+                               f"{tier_launches[name]}, expected {expected}")
 
     kernels = []
-    for name, key, launches, _ in builds:
-        case = checks[key]
+    for name, key, launches, _ in entries:
+        case = checks[key] if key in checks else checks[
+            next(n for n in checks if n in runners
+                 and lib_of[n] == lib_of[key])]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "acme_tpu_torch/ops/csrc/fused.cu",
@@ -633,6 +898,7 @@ def main():
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": None})
+    log(f"[total] {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,8 @@ Bound as in tests/test_torch_fused.py: y within -90 dB of each lane's
 peak (bit-identical on the H100 so far), fails and floored equal.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -21,8 +23,11 @@ from acme_tpu_torch import sweeps as S
 from acme_tpu_torch.models import (birdie_model, diodeclipper,
                                    diodeclipper_model)
 from acme_tpu_torch.ops import fused as F
+from torch_step_configs import CONFIGS, LEVEL_CONFIGS
 
 FS = 44100
+# the JAX bench's production configuration, which these builds hold
+PROD = S.PRODUCTION
 CASES = {
     "clipper": (diodeclipper_model, (), 1.5, None),
     "birdie": (birdie_model, (1,), 0.3, np.linspace(0.05, 0.95, 128)[:, None]),
@@ -60,7 +65,7 @@ def test_kernel_matches_plain_on_card(case):
     dev = _card()
     build, lidx, amp, lv = CASES[case]
     lv = np.zeros((128, 0)) if lv is None else lv
-    tr = FusedRunner(build(), lane_input_idx=lidx, device=dev)
+    tr = FusedRunner(build(), lane_input_idx=lidx, **PROD, device=dev)
     u_time = (amp * np.sin(2 * np.pi * 1000 / FS * np.arange(64)))[None, :]
     _kernel_vs_plain(tr, u_time, lv, tr.initial_state(128))
 
@@ -81,7 +86,8 @@ def test_per_lane_models_match_plain_on_card():
     reads the two varying coefficients from the tables it is handed."""
     dev = _card()
     tr = FusedRunner([clipper_with_r1(r) for r in (820.0, 1000.0, 1500.0,
-                                                   4700.0)], device=dev)
+                                                   4700.0)], **PROD,
+                     device=dev)
     assert tr.nvar > 0
     u_time = (2.0 * np.sin(2 * np.pi * 1000 / FS * np.arange(200)))[None, :]
     _kernel_vs_plain(tr, u_time, np.zeros((128, 0)), tr.initial_state(128))
@@ -103,10 +109,11 @@ def test_level_builds_match_plain_on_card(model):
     lv = np.linspace(0.1, 2.0, 128)[:, None]
     if model == "clipper":
         fr = FusedRunner(diodeclipper_model(), lane_scale_idx=(0,),
-                         powerup="safe", device=dev)
+                         powerup="safe", **PROD, device=dev)
         amp = 1.5
     elif model == "superover_presets":
-        fr = FusedRunner(S.build_presets(FS), powerup="safe", device=dev,
+        fr = FusedRunner(S.build_presets(FS), powerup="safe", **PROD,
+                         device=dev,
                          **S.lane_grid("presets", 128)[4])
         assert fr.nvar > 0
         lv = S.lane_grid("presets", 128)[3]
@@ -114,10 +121,48 @@ def test_level_builds_match_plain_on_card(model):
     else:
         variant = "full" if model == "superover_full" else "chain"
         fr = FusedRunner(S.build_model("level", variant),
-                         lane_scale_idx=(0,), powerup="safe", device=dev)
+                         lane_scale_idx=(0,), powerup="safe", **PROD,
+                         device=dev)
         amp = 0.2
     pr = fr._powerup_runner()
     u_time = (amp * np.sin(2 * np.pi * 1000 / FS * np.arange(32)))[None, :]
     st = _kernel_vs_plain(pr, u_time, lv, pr.initial_state(128))
     _kernel_vs_plain(fr, u_time, lv, {k: v.contiguous()
                                       for k, v in st.items()})
+
+
+@pytest.fixture(scope="module")
+def config_runners():
+    """A runner per (model, configuration), their builds compiled
+    together (one nvcc each, started at once)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from acme_tpu_torch.ops.build import compile_library, load_kernel
+    dev = _card()
+    level = S.build_model("level", "chain")
+    runners = {("clipper", c): FusedRunner(
+        diodeclipper_model(), lane_scale_idx=(0,), **kw, device=dev)
+        for c, kw in CONFIGS.items()}
+    for c in LEVEL_CONFIGS:
+        runners["superover_level", c] = FusedRunner(
+            copy.deepcopy(level), lane_scale_idx=(0,), **CONFIGS[c],
+            device=dev)
+    with ThreadPoolExecutor(len(runners)) as ex:
+        list(ex.map(lambda r: compile_library(r.plan), runners.values()))
+    for r in runners.values():
+        load_kernel(r.plan)
+    return runners
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,config",
+                         [("clipper", c) for c in CONFIGS]
+                         + [("superover_level", c) for c in LEVEL_CONFIGS])
+def test_configurations_match_plain_on_card(config_runners, model, config):
+    """Each step configuration's build from cold, 128 input levels x 64
+    samples (the clipper at a 1.5, the level Super Over at a 0.2
+    amplitude), against the plain version on the same card."""
+    fr = config_runners[model, config]
+    amp = 1.5 if model == "clipper" else 0.2
+    u_time = (amp * np.sin(2 * np.pi * 1000 / FS * np.arange(64)))[None, :]
+    _kernel_vs_plain(fr, u_time, np.linspace(0.1, 2.0, 128)[:, None],
+                     fr.initial_state(128))

@@ -39,8 +39,7 @@ from acme_tpu_torch import sweeps as S
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REFS = os.path.join(ROOT, ".hostref_cache.npz")
 FS = 44100
-PROD = dict(newton_iters=192, tol=1e-9, fast_iters=1, polish_fixed=2,
-            df_polish="comp_final", df_solve="auto", fast_verify="merge")
+PROD = S.PRODUCTION
 
 
 def sine(amp, n):
@@ -65,7 +64,7 @@ def test_full_model_prepares_as_the_jax_package(full_model, jax_model):
     assert (m.nn(0), m.np(0), m.nq(0)) == (7, 5, 14)
     kw = dict(lane_scale_idx=(0,), powerup="safe", powerup_samples=32)
     jr = JaxRunner(copy.deepcopy(jax_model), interpret=True, compile_cache=False, **PROD, **kw)
-    tr = FusedRunner(copy.deepcopy(m), **kw, device="cpu")
+    tr = FusedRunner(copy.deepcopy(m), **PROD, **kw, device="cpu")
     assert tr.sub_fragile == jr.sub_fragile == [True]
     assert tr.sub_cond_eq == jr.sub_cond_eq and 1e4 < tr.sub_cond_eq[0] < 1e5
     assert tr.tols == jr.tols and tr.gates == jr.gates
@@ -107,7 +106,7 @@ def test_full_model_matches_float64_from_cold(full_model, jax_model):
                     - set(refs))
     sel = np.array(sorted(set(refs) | set(others[:128 - len(refs)])))
     tr = FusedRunner(copy.deepcopy(full_model), powerup="safe",
-                     powerup_samples=32, **cfg,
+                     powerup_samples=32, **cfg, **PROD,
                      device="cpu")
     n = 64
     u = sine(0.2, n)

@@ -31,6 +31,7 @@ from acme_tpu.ops.fused import FusedRunner as JaxRunner
 from acme_tpu_torch import FusedRunner
 from acme_tpu_torch.convert import (load_steady_seed, state_from_jax,
                                     state_to_jax)
+from acme_tpu_torch.sweeps import PRODUCTION
 from bench import _lane_grid, _select_parity_lanes, _stress_lanes
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -38,8 +39,7 @@ ROOT = os.path.dirname(HERE)
 SEEDS = os.path.join(ROOT, ".steadyseed_cache.npz")
 REFS = os.path.join(ROOT, ".hostref_cache.npz")
 SEED_TAG = "seed2_pots_chain_fs44100_L4096"
-PROD = dict(newton_iters=192, tol=1e-9, fast_iters=1, polish_fixed=2,
-            df_polish="comp_final", df_solve="auto", fast_verify="merge")
+PROD = PRODUCTION
 FS = 44100
 
 
@@ -65,7 +65,8 @@ def jax_runner(model, lidx, T):
 def compare_with_jax(model, lidx, u, lv, jax_state=None):
     T = u.shape[1]
     jr = jax_runner(model, lidx, T)
-    tr = FusedRunner(copy.deepcopy(model), lane_input_idx=lidx, device="cpu")
+    tr = FusedRunner(copy.deepcopy(model), lane_input_idx=lidx, **PROD,
+                     device="cpu")
     yj, _, ij = jr.run(u, lv, state=jax_state, check=False)
     state = None if jax_state is None else state_from_jax(jax_state)
     yt, _, it = tr.run(u, lv, state=state, check=False)
@@ -98,7 +99,8 @@ def test_birdie_matches_float64_host():
     T = 64
     u = sine(0.3, T)
     vols = np.linspace(0.05, 0.95, 128)[:, None]
-    tr = FusedRunner(M.birdie_model(), lane_input_idx=(1,), device="cpu")
+    tr = FusedRunner(M.birdie_model(), lane_input_idx=(1,), **PROD,
+                     device="cpu")
     y, _, info = tr.run(u, vols, check=False)
     assert int(info.fails.sum()) == 0
     for lane in (0, 40, 127):
@@ -142,7 +144,7 @@ def test_superover_matches_float64_references(superover):
     assert int(0.78711 * 4096) in sel and int(0.80713 * 4096) in sel
     drive, tone, lv = _pots()
     tr = FusedRunner(superover, lane_input_idx=(1, 2), powerup="steady",
-                     device="cpu")
+                     **PROD, device="cpu")
     state = load_steady_seed(SEEDS, SEED_TAG, tr, lanes=sel)
     T = 32
     y, st, info = tr.run(sine(0.2, T), lv[sel], state=state, check=False)
@@ -164,7 +166,7 @@ def test_superover_matches_jax_interpret(superover):
     sel, _ = _superover_lanes()
     _, _, lv = _pots()
     tr = FusedRunner(copy.deepcopy(superover), lane_input_idx=(1, 2),
-                     device="cpu")
+                     **PROD, device="cpu")
     state = load_steady_seed(SEEDS, SEED_TAG, tr, lanes=sel)
     jr = jax_runner(superover, (1, 2), 32)
     jr._steady_floors = tr._steady_floors
@@ -182,7 +184,8 @@ def test_lanes_are_independent():
     T = 16
     vols = np.linspace(0.05, 0.95, 128)[:, None]
     perm = np.random.default_rng(3).permutation(128)
-    tr = FusedRunner(M.birdie_model(), lane_input_idx=(1,), device="cpu")
+    tr = FusedRunner(M.birdie_model(), lane_input_idx=(1,), **PROD,
+                     device="cpu")
     y1, s1, i1 = tr.run(sine(0.3, T), vols, check=False)
     y2, s2, i2 = tr.run(sine(0.3, T), vols[perm], check=False)
     np.testing.assert_array_equal(y1.numpy()[perm], y2.numpy())
@@ -199,7 +202,7 @@ def test_state_carries_across_packages():
     lv = np.zeros((128, 0))
     y32, _, _ = jax_runner(model, (), 32).run(u, lv, check=False)
     _, js, _ = jax_runner(model, (), 16).run(u[:, :16], lv, check=False)
-    tr = FusedRunner(copy.deepcopy(model), device="cpu")
+    tr = FusedRunner(copy.deepcopy(model), **PROD, device="cpu")
     y2, _, _ = tr.run(u[:, 16:], lv, state=state_from_jax(js), check=False)
     db = lane_db(y2.numpy(), np.asarray(y32)[:, :, 16:])
     assert db.max() < -90.0
@@ -208,7 +211,7 @@ def test_state_carries_across_packages():
 def test_check_outputs_raises_on_nonfinite():
     """A linear model (nonlinear subsystems substitute the last good z on
     a non-finite solve, which can keep y finite)."""
-    tr = FusedRunner(M.sallenkey_model(), device="cpu")
+    tr = FusedRunner(M.sallenkey_model(), **PROD, device="cpu")
     u = sine(0.5, 16)
     u[0, 5] = np.inf
     with pytest.raises(RuntimeError, match="non-finite"):

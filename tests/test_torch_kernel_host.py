@@ -38,8 +38,11 @@ from acme_tpu_torch.ops import dfmath as tdf
 from acme_tpu_torch.ops import fused as F
 from acme_tpu_torch.ops.build import load_host
 from acme_tpu_torch.ops.linsolve_tiny import solve_rows
+from torch_step_configs import CONFIGS, LEVEL_CONFIGS
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the JAX bench's production configuration, which these builds hold
+PROD = S.PRODUCTION
 
 
 @pytest.fixture(scope="module")
@@ -47,7 +50,7 @@ def host_lib(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("g++ not found")
     out = str(tmp_path_factory.mktemp("acme_build"))
-    clip = FusedRunner(M.diodeclipper_model(), device="cpu")
+    clip = FusedRunner(M.diodeclipper_model(), **PROD, device="cpu")
     return load_host(clip.plan, out), out
 
 
@@ -163,14 +166,15 @@ def _sine(amp, T):
 
 def test_step_clipper(host_lib):
     _, out = host_lib
-    fr = FusedRunner(M.diodeclipper_model(), device="cpu")
+    fr = FusedRunner(M.diodeclipper_model(), **PROD, device="cpu")
     _compare(load_host(fr.plan, out), fr, _sine(1.5, 64), np.zeros((128, 0)),
              fr.initial_state(128))
 
 
 def test_step_birdie_pot_lanes(host_lib):
     _, out = host_lib
-    fr = FusedRunner(M.birdie_model(), lane_input_idx=(1,), device="cpu")
+    fr = FusedRunner(M.birdie_model(), lane_input_idx=(1,), **PROD,
+                     device="cpu")
     _compare(load_host(fr.plan, out), fr, _sine(0.3, 32),
              np.linspace(0.05, 0.95, 128)[:, None], fr.initial_state(128))
 
@@ -178,7 +182,8 @@ def test_step_birdie_pot_lanes(host_lib):
 def test_step_superover_from_seeds(host_lib):
     _, out = host_lib
     m = M.superover_model(drive=None, tone=None, level=1.0, vb_source=True)
-    fr = FusedRunner(m, lane_input_idx=(1, 2), powerup="steady", device="cpu")
+    fr = FusedRunner(m, lane_input_idx=(1, 2), powerup="steady", **PROD,
+                     device="cpu")
     lanes = np.array([0, 451, 2048, 3224, 3306, 4095] + list(range(
         700, 4096, 400)))
     state = load_steady_seed(os.path.join(ROOT, ".steadyseed_cache.npz"),
@@ -190,7 +195,7 @@ def test_step_superover_from_seeds(host_lib):
 
 def test_linear_model_without_subsystems(host_lib):
     _, out = host_lib
-    fr = FusedRunner(M.sallenkey_model(), device="cpu")
+    fr = FusedRunner(M.sallenkey_model(), **PROD, device="cpu")
     _compare(load_host(fr.plan, out), fr, _sine(0.5, 32), np.zeros((4, 0)),
              fr.initial_state(4))
 
@@ -204,12 +209,12 @@ def test_step_level_powerup_then_main(host_lib, model):
     if model == "clipper":
         fr = FusedRunner(M.diodeclipper_model(), lane_scale_idx=(0,),
                          powerup="safe",
-                         device="cpu")
+                         **PROD, device="cpu")
         amp, L = 1.5, 64
     else:
         fr = FusedRunner(S.build_model("level", "chain"),
                          lane_scale_idx=(0,), powerup="safe",
-                         device="cpu")
+                         **PROD, device="cpu")
         amp, L = 0.2, 32
     pr = fr._powerup_runner()
     lv = np.linspace(0.1, 2.0, L)[:, None]
@@ -246,14 +251,14 @@ def test_step_per_lane_models_clipper(host_lib):
     _, out = host_lib
     fr = FusedRunner([clipper_with_r1(r) for r in (820.0, 1000.0, 1500.0,
                                                    4700.0)],
-                     device="cpu")
+                     **PROD, device="cpu")
     assert fr.nvar > 0
     _compare(load_host(fr.plan, out), fr, _sine(2.0, 64), np.zeros((64, 0)),
              fr.initial_state(64))
     # lane-scaled, from cold through both builds
     fr = FusedRunner([clipper_with_r1(r) for r in (820.0, 4700.0)],
                      lane_scale_idx=(0,), powerup="safe",
-                     device="cpu")
+                     **PROD, device="cpu")
     _powerup_then_main(out, fr, 1.5, np.linspace(0.1, 2.0, 64)[:, None])
 
 
@@ -263,7 +268,8 @@ def test_step_presets_powerup_then_main(host_lib):
     _, out = host_lib
     models = S.build_models([S.preset_spec(*S.PRESETS[i]) for i in (0, 5, 7)],
                             workers=1)
-    fr = FusedRunner(models, lane_scale_idx=(0,), powerup="safe", device="cpu")
+    fr = FusedRunner(models, lane_scale_idx=(0,), powerup="safe", **PROD,
+                     device="cpu")
     assert fr.nvar == 62
     _powerup_then_main(out, fr, 0.2,
                        np.repeat(np.linspace(0.1, 2.0, 8), 3)[:, None])
@@ -276,7 +282,30 @@ def test_step_full_powerup_then_main(host_lib):
     _, out = host_lib
     fr = FusedRunner(S.build_model("level", "full"), lane_scale_idx=(0,),
                      powerup="safe",
-                     device="cpu")
+                     **PROD, device="cpu")
     assert fr.sub_fragile == [True] and fr.plan.subs[0]["fold"]
     _powerup_then_main(out, fr, 0.2, np.linspace(0.1, 2.0, 16)[:, None],
                        T_=8)
+
+
+@pytest.mark.parametrize("model,config", [("clipper", c) for c in CONFIGS]
+                         + [("superover_level", c) for c in LEVEL_CONFIGS])
+def test_step_configurations(host_lib, model, config):
+    """Each step configuration's build (the header's COMP, DF_STATE,
+    EXTRAP, EXTRAP_USE, PIVOT, POLISH_ONLY, VERIFY_ALWAYS, KEEP_TOL,
+    POL_MODE, VERDICT, RESCUE_MODE and REL_* constants) from cold with
+    lane-scaled inputs: the clipper (32 levels x 48 samples), the level
+    Super Over (8 levels x 12 samples)."""
+    _, out = host_lib
+    if model == "clipper":
+        fr = FusedRunner(M.diodeclipper_model(), lane_scale_idx=(0,),
+                         **CONFIGS[config], device="cpu")
+        amp, L, n = 1.5, 32, 48
+    else:
+        fr = FusedRunner(S.build_model("level", "chain"),
+                         lane_scale_idx=(0,), **CONFIGS[config],
+                         device="cpu")
+        amp, L, n = 0.2, 8, 12
+    _compare(load_host(fr.plan, out), fr, _sine(amp, n),
+             np.linspace(0.1, 2.0, L)[:, None], fr.initial_state(L),
+             pairs=True)

@@ -25,11 +25,11 @@ from acme_tpu.ops.fused import FusedRunner as JaxRunner
 from acme_tpu_torch import FusedRunner
 from acme_tpu_torch import models as TM
 from acme_tpu_torch import sweeps as S
+from acme_tpu_torch.sweeps import PRODUCTION
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REFS = os.path.join(ROOT, ".hostref_cache.npz")
-PROD = dict(newton_iters=192, tol=1e-9, fast_iters=1, polish_fixed=2,
-            df_polish="comp_final", df_solve="auto", fast_verify="merge")
+PROD = PRODUCTION
 SIBLING = dict(fast_iters=0, extrapolate="track", df_polish="final")
 FS = 44100
 LEVELS = np.linspace(0.1, 2.0, 128)[:, None]
@@ -50,7 +50,7 @@ def lane_db(y, ref):
 def against_jax(jax_model, port_model, u, lv, chunk, **kw):
     jr = JaxRunner(jax_model, interpret=True, compile_cache=False,
                    time_chunk=chunk, **{**PROD, **kw})
-    tr = FusedRunner(port_model, **kw, device="cpu")
+    tr = FusedRunner(port_model, **{**PROD, **kw}, device="cpu")
     yj, sj, ij = jr.run(u, lv, check=False)
     yt, st, it = tr.run(u, lv, check=False)
     db = lane_db(yt.numpy(), np.asarray(yj))
@@ -89,7 +89,7 @@ def test_powerup_run_is_sibling_then_main():
     for bit; the sibling keeps the sensitivity dz/dp up to date (with
     "track" it does not use it, but the runner after the handoff does)."""
     fr = FusedRunner(TM.diodeclipper_model(), lane_scale_idx=(0,),
-                     powerup="safe", powerup_samples=24,
+                     powerup="safe", powerup_samples=24, **PROD,
                      device="cpu")
     u = sine(1.5, 48)
     y, state, info = fr.run(u, LEVELS, check=False)
@@ -124,7 +124,7 @@ def test_level_superover_matches_float64_references():
                     - set(refs))
     sel = np.array(sorted(set(refs) | set(others[:128 - len(refs)])))
     tr = FusedRunner(S.build_model("level", "chain"), powerup="safe",
-                     powerup_samples=32, **cfg,
+                     powerup_samples=32, **cfg, **PROD,
                      device="cpu")
     assert tr.sub_fragile == [False, False, True]
     T = 64

@@ -37,8 +37,7 @@ from acme_tpu_torch.convert import (coef_from_jax, coef_to_jax,
 from acme_tpu_torch.ops.emit import model_header
 from acme_tpu_torch.ops.fused import _Var
 
-PROD = dict(newton_iters=192, tol=1e-9, fast_iters=1, polish_fixed=2,
-            df_polish="comp_final", df_solve="auto", fast_verify="merge")
+PROD = S.PRODUCTION
 FS = 44100
 R1 = (820.0, 1000.0, 1500.0, 4700.0)
 PRESETS = [S.PRESETS[i] for i in (0, 5, 7)]
@@ -84,7 +83,8 @@ def presets():
     tm = S.build_models([S.preset_spec(d, t) for d, t in PRESETS], workers=1)
     kw = dict(lane_scale_idx=(0,), powerup="safe", powerup_samples=32)
     jr = JaxRunner(jm, interpret=True, compile_cache=False, **PROD, **kw)
-    tr = FusedRunner([copy.deepcopy(m) for m in tm], **kw, device="cpu")
+    tr = FusedRunner([copy.deepcopy(m) for m in tm], **PROD, **kw,
+                     device="cpu")
     return jr, tr, tm
 
 
@@ -156,7 +156,7 @@ def test_clipper_list_matches_jax_interpret_and_float64_host():
     lv = np.zeros((128, 0))
     jr = JaxRunner(jax_clippers(), interpret=True, compile_cache=False,
                    time_chunk=104, **PROD)
-    tr = FusedRunner(port_clippers(), device="cpu")
+    tr = FusedRunner(port_clippers(), **PROD, device="cpu")
     yj, _, ij = jr.run(u, lv, check=False)
     yt, _, it = tr.run(u, lv, check=False)
     assert tuple(yt.shape) == (128, 1, n)
@@ -179,7 +179,7 @@ def test_clipper_list_matches_jax_interpret_and_float64_host():
 def test_clipper_list_prepared_equal():
     jr = JaxRunner(jax_clippers(), interpret=True, compile_cache=False,
                    **PROD)
-    tr = FusedRunner(port_clippers(), device="cpu")
+    tr = FusedRunner(port_clippers(), **PROD, device="cpu")
     check_prepared_equal(jr, tr)
 
 
@@ -200,8 +200,9 @@ def test_copies_of_one_model_are_the_single_model():
     hash and the library) is the single model's byte for byte, and the
     output is bit-equal."""
     m = TM.diodeclipper_model()
-    one = FusedRunner(copy.deepcopy(m), device="cpu")
-    many = FusedRunner([copy.deepcopy(m) for _ in range(3)], device="cpu")
+    one = FusedRunner(copy.deepcopy(m), **PROD, device="cpu")
+    many = FusedRunner([copy.deepcopy(m) for _ in range(3)], **PROD,
+                       device="cpu")
     assert many.nvar == 0 and len(many.models) == 3
     assert many.P == one.P
     assert tuple(many._coef_tables(128)[0].shape) == (1, 128)
@@ -220,10 +221,10 @@ def test_varying_coefficients_are_table_reads_in_the_header():
     """The header of a list names NVAR and reads cv[i] / cvl[i]; the table
     VALUES are arguments, so another list with the same pattern of varying
     entries emits the same header."""
-    a = FusedRunner(port_clippers(), device="cpu")
+    a = FusedRunner(port_clippers(), **PROD, device="cpu")
     h = model_header(a.plan)
     assert f"NVAR = {a.nvar}" in h and "cv[0]" in h and "cvl[0]" in h
-    assert h != model_header(FusedRunner(TM.diodeclipper_model(),
+    assert h != model_header(FusedRunner(TM.diodeclipper_model(), **PROD,
                                          device="cpu").plan)
 
 
@@ -233,13 +234,13 @@ def test_lanes_match_single_model_runners():
     -100 dB of the lane's peak."""
     u = sine(2.0, 128)
     lv = np.zeros((128, 0))
-    y, _, info = FusedRunner(port_clippers(), device="cpu").run(
+    y, _, info = FusedRunner(port_clippers(), **PROD, device="cpu").run(
         u, lv, check=False)
     assert int(info.fails.sum()) == 0
     y = y.numpy()
     for i, r in enumerate(R1):
         ys, _, _ = FusedRunner(clipper_with_r1(T, TM.diodeclipper, r),
-                               device="cpu").run(
+                               **PROD, device="cpu").run(
             u, lv[:4], check=False)
         for lane in (i, 64 + i):
             db = lane_db(y[lane:lane + 1], ys.numpy()[:1])[0]

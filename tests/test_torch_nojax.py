@@ -37,10 +37,12 @@ SCRIPT = textwrap.dedent("""
     for mod in pkgutil.walk_packages(acme_tpu_torch.__path__,
                                      "acme_tpu_torch."):
         __import__(mod.name)
+    import acme_tpu_torch.ablate
     from acme_tpu_torch.models import diodeclipper_model
+    from acme_tpu_torch.sweeps import PRODUCTION
     fr = acme_tpu_torch.FusedRunner(diodeclipper_model(),
                                     lane_scale_idx=(0,), powerup="safe",
-                                    powerup_samples=16,
+                                    powerup_samples=16, **PRODUCTION,
                                     device="cpu")
     u = (1.5 * np.sin(2 * np.pi * 1000 / 44100 * np.arange(32)))[None, :]
     y, state, info = fr.run(u, np.linspace(0.1, 2.0, 128)[:, None])

@@ -20,6 +20,7 @@ from acme_tpu.ops.fused import FusedRunner as JaxRunner
 from acme_tpu_torch import FusedRunner
 from acme_tpu_torch import models as TM
 from acme_tpu_torch.convert import state_to_jax
+from acme_tpu_torch.sweeps import PRODUCTION as PROD
 
 # name -> (model function, keyword arguments, lane inputs, runner
 #          keywords, lanes)
@@ -52,7 +53,7 @@ def test_prepared_arrays_equal(case):
                    compile_cache=False, fast_iters=1, df_polish="comp_final",
                    fast_verify="merge", polish_fixed=2, **rkw)
     tr = FusedRunner(getattr(TM, fn)(**kw), lane_input_idx=lidx, **rkw,
-                     device="cpu")
+                     **PROD, device="cpu")
     jp, tp = jr._prep[0], tr.prep
     np.testing.assert_array_equal(jr.Tx, tr.Tx)
     np.testing.assert_array_equal(jr.u_ss, tr.u_ss)
@@ -88,18 +89,25 @@ def test_prepared_arrays_equal(case):
 
 
 def test_unported_configurations_raise():
+    """Two configurations stay unported: ``fast_verify="group"`` with a
+    fast path (the JAX kernel's redo couples a lane group) and ``mesh``,
+    also as the power-up sibling's overrides.  ``"group"`` without a fast
+    path is inert and runs."""
     m = TM.diodeclipper_model()
-    for kw in (dict(extrapolate=False), dict(compensated=False),
-               dict(df_polish=True), dict(df_polish="plain_final"),
-               dict(fast_verify="group"), dict(polish_only=True),
-               dict(pivot=False), dict(verdict_jac="plain"),
-               dict(mesh=object()), dict(powerup=dict(compensated=False)),
-               dict(powerup=dict(extrapolate=False)),
-               dict(powerup=dict(df_polish="plain_final"))):
+    for kw in (dict(fast_iters=1), dict(polish_only=True),
+               dict(fast_iters=2, fast_verify="group"), dict(mesh=object()),
+               dict(**PROD, powerup=dict(fast_verify="group")),
+               dict(powerup=dict(fast_iters=1)),
+               dict(powerup=dict(polish_only=True))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             FusedRunner(m, **kw, device="cpu")
+    for kw in (dict(fast_verify="group"), dict(powerup="safe"),
+               dict(fast_iters=0, polish_only=False, fast_verify="group")):
+        FusedRunner(m, **kw, device="cpu")
     with pytest.raises(ValueError, match="unknown powerup override"):
         FusedRunner(m, powerup=dict(fast_iters=0, grid=4), device="cpu")
+    with pytest.raises(ValueError, match="fast_verify must be"):
+        FusedRunner(m, fast_verify="some", device="cpu")
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="needs no CUDA card")
@@ -138,7 +146,7 @@ def test_level_sweep_configurations_build():
                dict(powerup=dict(compensated=True, newton_iters=64))):
         FusedRunner(m, **kw, device="cpu")
     fr = FusedRunner(m, lane_scale_idx=(0,), powerup="safe",
-                     powerup_samples=64,
+                     powerup_samples=64, **PROD,
                      device="cpu")
     pr = fr._powerup_runner()
     assert pr is fr._powerup_runner() and pr.prep is fr.prep
@@ -147,10 +155,14 @@ def test_level_sweep_configurations_build():
         (0, "track", "final")
     assert (fr.fast_iters, fr.extrapolate, fr.df_polish) == \
         (1, True, "comp_final")
-    assert (pr.plan.fast, pr.plan.extrap_use, pr.plan.df_final,
-            pr.plan.rel_tol_pol) == (0, False, True, 3.0e-8)
-    assert (fr.plan.fast, fr.plan.extrap_use, fr.plan.df_final,
-            fr.plan.rel_tol_pol) == (1, True, False, 3.0e-7)
+    # the sibling: the robust path, a compensated polish loop and a df
+    # verdict; production: a plain polish loop and a compensated verdict
+    assert (pr.plan.fast, pr.plan.extrap_use, pr.plan.pol_mode,
+            pr.plan.verdict, pr.plan.rel_tol_pol) == \
+        (0, False, True, "df", 3.0e-8)
+    assert (fr.plan.fast, fr.plan.extrap_use, fr.plan.pol_mode,
+            fr.plan.verdict, fr.plan.rel_tol_pol) == \
+        (1, True, False, True, 3.0e-7)
     assert pr.scale_idx == fr.scale_idx == (0,)
     # the build is named by the sibling's role, not by its knobs
     assert (fr.plan.kernel_name, pr.plan.kernel_name) == \
@@ -167,16 +179,18 @@ def test_op_counts():
     subsystem; more work for a bigger subsystem, and for the EFT dots of a
     model with more states."""
     from acme_tpu_torch.ops.emit import _solve_ops, op_counts
-    clip = op_counts(FusedRunner(TM.diodeclipper_model(), device="cpu").plan)
+    clip = op_counts(FusedRunner(TM.diodeclipper_model(), **PROD,
+                                 device="cpu").plan)
     bird = op_counts(FusedRunner(TM.birdie_model(),
-                                 lane_input_idx=(1,),
+                                 lane_input_idx=(1,), **PROD,
                                  device="cpu").plan)
     assert len(clip[1]) == 1 and len(bird[1]) == 1
     assert 0 < clip[0] < bird[0] and 0 < clip[1][0] < bird[1][0]
     assert _solve_ops(1, 1) < _solve_ops(2, 1) < _solve_ops(3, 1) \
         < _solve_ops(5, 1) < _solve_ops(5, 3)
-    # a per-lane coefficient's EFT term (here Eq's entry, which varies
-    # with the clipper's series resistor) costs its lo * v more
+    # a per-lane coefficient's EFT term costs its lo * v more: here Eq's
+    # entry in p's dot and Fq's in the compensated verdict's q, both of
+    # which vary with the clipper's series resistor
     import acme_tpu_torch as T
 
     def clipper(r):
@@ -187,6 +201,28 @@ def test_op_counts():
         circ.connect(("r1", 2), ("d1", "+"))
         return T.DiscreteModel(circ, 1 / 44100)
 
-    many = FusedRunner([clipper(820.0), clipper(4700.0)], device="cpu")
+    many = FusedRunner([clipper(820.0), clipper(4700.0)], **PROD,
+                       device="cpu")
     assert many.nvar == 2
-    assert op_counts(many.plan) == (clip[0] + 2, clip[1])
+    assert op_counts(many.plan) == (clip[0] + 4, clip[1])
+
+
+def test_df_residual_verdict_computes_only_its_halves():
+    """``verdict_jac="plain"`` (the df_res evaluation): its build carries
+    the df residual alone and the plain Jacobian alone, and the bound
+    prices those, below a full df evaluation; other builds carry
+    neither."""
+    from acme_tpu_torch.ops.emit import _eval_ops, model_header
+    kw = dict(PROD, df_polish="plain_final")
+    df = FusedRunner(TM.birdie_model(), lane_input_idx=(1,), **kw,
+                     device="cpu").plan
+    dfres = FusedRunner(TM.birdie_model(), lane_input_idx=(1,),
+                        **dict(kw, verdict_jac="plain"), device="cpu").plan
+    assert (df.verdict, dfres.verdict) == ("df", "df_res")
+    text = model_header(dfres)
+    assert "void nl_df_res(const df* q, df* res)" in text
+    assert "void nl_jq(const float* q, float* Jq)" in text
+    assert "nl_df_res" not in model_header(df)
+    s = dfres.subs[0]
+    assert _eval_ops(dfres, s, True) < _eval_ops(dfres, s, "df_res") \
+        < _eval_ops(dfres, s, "df")
