@@ -33,8 +33,9 @@ def _to_blocks(t, lane_block):
     return np.ascontiguousarray(a.reshape(n, L // lane_block, lane_block))
 
 
-def state_from_jax(state, device="cpu"):
-    """(n, S, 128) arrays (numpy or jax) -> (n, L) float32 tensors."""
+def state_from_jax(state, device="cuda"):
+    """(n, S, 128) arrays (numpy or jax) -> (n, L) float32 tensors on
+    ``device`` (the card unless the caller asks for the CPU)."""
     return {k: _from_blocks(state[k], device) for k in STATE_KEYS}
 
 
@@ -44,9 +45,10 @@ def state_to_jax(state, lane_block: int = 128):
     return {k: _to_blocks(state[k], lane_block) for k in STATE_KEYS}
 
 
-def coef_from_jax(hi, lo, device="cpu"):
+def coef_from_jax(hi, lo, device="cuda"):
     """The JAX runner's ``_coef_tables(S)`` pair, (nvar, S, 128) each, as
-    the port's (nvar, L) float32 tensors (``fused_step``'s ``coef``)."""
+    the port's (nvar, L) float32 tensors (``fused_step``'s ``coef``) on
+    ``device`` (the card unless the caller asks for the CPU)."""
     return _from_blocks(hi, device), _from_blocks(lo, device)
 
 

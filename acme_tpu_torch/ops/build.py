@@ -4,7 +4,9 @@ The kernel is the hand-written ``csrc/fused.cu`` (with ``df.cuh``,
 ``linsolve.cuh``, ``step.cuh``) plus the model header that ``emit.py``
 writes.  ``nvcc`` compiles them for ``sm_90a`` into a shared library with a
 plain C interface; ``g++`` compiles the same sources as C++ for the host
-tests (the step is ``__host__ __device__``).  Builds go into
+tests (the step is ``__host__ __device__``; a build that couples lane
+groups runs each lane of a group on a thread of its own there, hence
+``-pthread``).  Builds go into
 ``acme_tpu_torch/_build/`` (or ``ACME_TPU_TORCH_BUILD``), keyed by a hash of
 the sources, the header and the flags, and happen at first use.
 """
@@ -29,7 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 HOST_FLAGS = ["-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
-              "-x", "c++"]
+              "-pthread", "-x", "c++"]
 
 # the per-thread stack ``csrc/fused.cu`` sets before its first launch: the
 # frames that ptxas reports for a build must fit
@@ -94,10 +96,13 @@ _PTR = ctypes.c_void_p
 
 def _bind(path, cuda):
     lib = ctypes.CDLL(path)
-    common = [_PTR] * 26 + [ctypes.c_int, ctypes.c_int]
+    # the 26 tensors, T, L, the lane groups' barrier words and size
+    common = [_PTR] * 26 + [ctypes.c_int, ctypes.c_int, _PTR, ctypes.c_int]
     if cuda:
         lib.acme_fused_launch.argtypes = common + [ctypes.c_int, _PTR]
         lib.acme_fused_launch.restype = ctypes.c_int
+        lib.acme_cuda_error.argtypes = [ctypes.c_int]
+        lib.acme_cuda_error.restype = ctypes.c_char_p
     lib.acme_fused_host.argtypes = common
     lib.acme_fused_host.restype = ctypes.c_int
     lib.acme_df_op_host.argtypes = [ctypes.c_int, ctypes.c_int] + [_PTR] * 6

@@ -44,6 +44,17 @@ HD inline float jsign(float x) {
 }
 HD inline float recip_safe(float v) { return v > 0.0f ? 1.0f / v : 1.0f; }
 
+// the element physics' float32 exp: on the card expf, as torch's float32 exp
+// there; on the host the float64 exp rounded, as the plain version rounds it
+// on the CPU (libm's expf is an ulp off for some 0.2 % of arguments)
+HD inline float exp_f32(float x) {
+#ifdef __CUDA_ARCH__
+  return expf(x);
+#else
+  return (float)exp((double)x);
+#endif
+}
+
 // -- error-free transforms ---------------------------------------------------
 
 HD inline void two_sum(float a, float b, float& s, float& e) {

@@ -28,6 +28,15 @@
 //    warp, and keeps them with its state for the whole run, so the tables
 //    cost 8 NVAR bytes of traffic per lane and launch.  Equal coefficients
 //    stay literals of the instruction stream, as on the TPU.
+//  * Lane groups (fast_verify="group" with a fast path, a VERIFY_GROUP
+//    build): the TPU kernel decides keep-or-redo once per grid block of
+//    lanes, so here the lanes of a group (2048 by default: 64 blocks, more
+//    than a thread-block cluster holds) meet at a barrier in device memory
+//    at every keep test (step.cuh group_all), one arrival per warp.  A
+//    spinning barrier needs every block of the group resident, so these
+//    builds launch cooperatively, which fails rather than run a grid the
+//    card cannot hold at once; the barrier words are (G, 4) ints that the
+//    wrapper zeroes before each launch.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // --fmad=false -shared -Xcompiler -fPIC -include <model header> fused.cu
@@ -40,6 +49,10 @@
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
+#include <exception>
+#include <mutex>
+#include <thread>
+#include <vector>
 
 namespace {
 
@@ -57,12 +70,29 @@ struct Args {
   float *xo, *xloo, *zo, *zloo, *zwo, *wpo, *dzdpo, *pmodeo;
   int *fails, *iters, *floored;
   int T, L;
+  // a VERIFY_GROUP build's lane groups: Lg lanes each, and on the card
+  // each group's four barrier words at gwords[4 g]
+  int* gwords;
+  int Lg;
 };
 
+// set up lane l's place in its lane group (a VERIFY_GROUP build; `host`
+// is the group's HostGroup when the lanes run on host threads)
+template <class LaneT>
+HD inline void join_group(LaneT& ln, const Args& a, int l, void* host) {
+  if constexpr (VERIFY_GROUP) {
+    ln.gwords = a.gwords + 4 * (l / a.Lg);
+    ln.gwarps = a.Lg / 32;
+    ln.ghost = host;
+    ln.gpar = 0;
+  }
+}
+
 // one lane's whole run: load its state, step every sample, store it back
-HD inline void run_lane(const Args& a, int l) {
+HD inline void run_lane(const Args& a, int l, void* host_group = nullptr) {
   const int L = a.L;
   Lane ln;
+  join_group(ln, a, l, host_group);
   for (int i = 0; i < NX; ++i) ln.x[i] = a.x[i * L + l], ln.xlo[i] = a.xlo[i * L + l];
   for (int i = 0; i < NNT; ++i) {
     ln.z[i] = a.z[i * L + l];
@@ -127,7 +157,8 @@ Args make_args(const float* u, const float* lanes, const float* tol,
                const float* wp, const float* dzdp, const float* pmode,
                float* y, float* xo, float* xloo, float* zo, float* zloo,
                float* zwo, float* wpo, float* dzdpo, float* pmodeo,
-               int* fails, int* iters, int* floored, int T, int L) {
+               int* fails, int* iters, int* floored, int T, int L,
+               int* gwords, int Lg) {
   Args a;
   a.u = u, a.lanes = lanes, a.tol = tol, a.gate = gate;
   a.ch = ch, a.cl = cl;
@@ -137,6 +168,7 @@ Args make_args(const float* u, const float* lanes, const float* tol,
   a.wpo = wpo, a.dzdpo = dzdpo, a.pmodeo = pmodeo;
   a.fails = fails, a.iters = iters, a.floored = floored;
   a.T = T, a.L = L;
+  a.gwords = gwords, a.Lg = Lg;
   return a;
 }
 
@@ -185,10 +217,11 @@ void solve_batch(int count, int use_df, int refine, int pivot,
       const float *dzdp, const float *pmode, float *y, float *xo,            \
       float *xloo, float *zo, float *zloo, float *zwo, float *wpo,           \
       float *dzdpo, float *pmodeo, int *fails, int *iters, int *floored,     \
-      int T, int L
+      int T, int L, int *gwords, int Lg
 #define ACME_PASS                                                            \
   u, lanes, tol, gate, ch, cl, x, xlo, z, zlo, zw, wp, dzdp, pmode, y, xo,   \
-      xloo, zo, zloo, zwo, wpo, dzdpo, pmodeo, fails, iters, floored, T, L
+      xloo, zo, zloo, zwo, wpo, dzdpo, pmodeo, fails, iters, floored, T, L,  \
+      gwords, Lg
 
 extern "C" {
 
@@ -209,15 +242,55 @@ int acme_fused_launch(ACME_ARGS, int device, void* stream) {
   }
   if (L <= 0) return 0;
   Args a = make_args(ACME_PASS);
-  acme_fused_kernel<<<(L + BLOCK - 1) / BLOCK, BLOCK, 0,
-                      (cudaStream_t)stream>>>(a);
+  const dim3 grid((L + BLOCK - 1) / BLOCK), block(BLOCK);
+  if constexpr (VERIFY_GROUP) {
+    // every block of a group resident at once, or no launch at all
+    void* params[] = {&a};
+    return (int)cudaLaunchCooperativeKernel((const void*)acme_fused_kernel,
+                                            grid, block, params, 0,
+                                            (cudaStream_t)stream);
+  }
+  acme_fused_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The CUDA runtime's name for an error code the launch returned.
+const char* acme_cuda_error(int e) {
+  return cudaGetErrorName((cudaError_t)e);
 }
 #endif
 
-// The same step on the host, lane by lane (tests without a card).
+// The same step on the host (tests without a card): lane by lane, or in a
+// VERIFY_GROUP build each lane of a group on a thread of its own, one group
+// after another; returns 1 if a group's threads could not all be started
+// (those that were are released from the barrier and joined first), 2 if
+// a group's barrier was stuck.
 int acme_fused_host(ACME_ARGS) {
   Args a = make_args(ACME_PASS);
+  if constexpr (VERIFY_GROUP) {
+    for (int g0 = 0; g0 < L; g0 += Lg) {
+      acme::HostGroup group;
+      group.n = Lg;
+      std::vector<std::thread> lanes_of_group;
+      bool started = true;
+      try {
+        lanes_of_group.reserve(Lg);
+        for (int l = g0; l < g0 + Lg; ++l)
+          lanes_of_group.emplace_back([&a, &group, l] {
+            run_lane(a, l, &group);
+          });
+      } catch (const std::exception&) {
+        started = false;
+        std::lock_guard<std::mutex> lock(group.m);
+        group.abort = true;
+        group.cv.notify_all();
+      }
+      for (auto& t : lanes_of_group) t.join();
+      if (!started) return 1;
+      if (group.stuck) return 2;
+    }
+    return 0;
+  }
   for (int l = 0; l < L; ++l) run_lane(a, l);
   return 0;
 }

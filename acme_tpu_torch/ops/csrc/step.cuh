@@ -2,26 +2,29 @@
 // model subsystem (in chain order), then the output row and state update.
 // A line-for-line per-lane rendering of _build.kernel in
 // acme_tpu/ops/fused.py (fused.py:1004-2371) for every step configuration
-// of the JAX runner but one (fast_verify="group" with a fast path, whose
-// redo couples a lane group): compensated or plain pfull and polish, the
-// fast path (fast_iters unguarded steps, or none with polish_only) with
-// its keep test at the gate or the polish target and its redo for the
-// lanes that fail it ("merge") or for all ("always"), or the robust path
-// every sample (fast_iters = 0); extrapolated, "track" or no warm start;
+// of the JAX runner: compensated or plain pfull and polish, the fast path
+// (fast_iters unguarded steps, or none with polish_only) with its keep
+// test at the gate or the polish target and its redo for the lanes that
+// fail it ("merge"), for every lane of a lane group with a lane that
+// fails it ("group") or for all ("always"), or the robust path every
+// sample (fast_iters = 0); extrapolated, "track" or no warm start;
 // pivoted or unpivoted main-path solves; the polish loop in plain,
 // compensated or df physics; no verdict, or a compensated, df or
 // df-residual one with a df elimination on the df-solve subsystems; df or
 // plain state.  The header's constants (COMP, DF_STATE, EXTRAP,
-// EXTRAP_USE, PIVOT, FAST_ITERS, POLISH_ONLY, VERIFY_ALWAYS, KEEP_TOL,
-// POL_MODE, VERDICT, RESCUE_MODE, REL_*, and each subsystem's DF_SLV and
-// FOLD) pick the configuration at compile time, so each build holds only
-// its own branches.
+// EXTRAP_USE, PIVOT, FAST_ITERS, POLISH_ONLY, VERIFY_ALWAYS, VERIFY_GROUP,
+// KEEP_TOL, POL_MODE, VERDICT, RESCUE_MODE, REL_*, and each subsystem's
+// DF_SLV and FOLD) pick the configuration at compile time, so each build
+// holds only its own branches.
 //
 // Every loop here is per lane: where the TPU kernel loops until all lanes
 // of a group are done (jnp.any / jnp.all exits) and masks the finished
 // ones, a thread simply stops.  The TPU loop bodies leave finished lanes
 // unchanged (re-evaluating the same point), so the results agree; the
-// iteration counters count each lane's own trips.
+// iteration counters count each lane's own trips.  One decision is the
+// group's and not the lane's: the keep test of a VERIFY_GROUP build
+// (jax.lax.cond(jnp.all(ok1)), fused.py:2139-2146), where every lane of
+// the group meets the others at group_all once per sample and subsystem.
 //
 // The model-specific parts come from the generated header (emit.py): the
 // subsystem traits Sub0, Sub1, ... with their coefficients, EFT dots and
@@ -34,6 +37,10 @@
 
 #include "df.cuh"
 #include "linsolve.cuh"
+
+#include <chrono>
+#include <condition_variable>
+#include <mutex>
 
 namespace acme {
 
@@ -49,8 +56,23 @@ struct cmax1 {
   static constexpr int v = N > 0 ? N : 1;
 };
 
+// a lane's lane group, in a VERIFY_GROUP build only (an empty base in
+// every other, so their Lane is what it was): on the card the group's
+// barrier words (two flag slots, the arrival count, the generation) and
+// its warps; on the host the group's HostGroup; and the parity of the
+// lane's next barrier, which picks the flag slot
+template <bool G>
+struct GroupOf {};
+template <>
+struct GroupOf<true> {
+  int* gwords;
+  int gwarps;
+  void* ghost;
+  int gpar;
+};
+
 // per-lane state carried across samples
-struct Lane {
+struct Lane : GroupOf<VERIFY_GROUP> {
   float x[cmax1<NX>::v], xlo[cmax1<NX>::v];
   float z[cmax1<NNT>::v], zlo[cmax1<NNT>::v], zw[cmax1<NNT>::v];
   float wp[cmax1<NPT>::v], dzdp[cmax1<NDZ>::v], pmode[cmax1<NSUB>::v];
@@ -60,6 +82,90 @@ struct Lane {
   int iters[cmax1<NSUB>::v];
   int fails, floored;
 };
+
+// a lane group on the host, whose lanes run on threads of their own: a
+// barrier that also ORs the lanes' failures, in the card's two slots
+// (`abort`: not every lane's thread started, or a lane waited longer than
+// any step takes, `stuck`; the barrier then lets every lane through)
+struct HostGroup {
+  std::mutex m;
+  std::condition_variable cv;
+  int n = 0, count = 0;
+  unsigned gen = 0;
+  bool fail[2] = {false, false};
+  bool abort = false, stuck = false;
+};
+
+// the longest wait at a barrier before the group is taken as stuck (a
+// step takes well under a millisecond of one lane's work): on the host
+// the run then fails, on the card the kernel traps, rather than hang
+constexpr int GROUP_WAIT_SECONDS = 60;
+constexpr unsigned long long GROUP_SPINS = 1ull << 27;
+
+// Whether `ok` holds on every lane of this lane's group: every lane of the
+// group calls it at the same point of its step (each keep test, once per
+// sample and subsystem), and none returns before all have called.
+//
+// On the card a group spans blocks (32 threads, one warp each; a 2048-lane
+// group 64 of them, more than a cluster holds), all resident at once
+// (cooperative launch), so it meets at a barrier in device memory:
+// __all_sync in the warp, then lane 0 ORs the warp's failure into the flag
+// slot of the barrier's parity, arrives, waits for the generation to move,
+// reads the slot back and hands it to the warp.  The last warp to arrive
+// clears the other slot before it releases the others: every warp read
+// that slot after the barrier before and before arriving here, and none
+// writes it again until after this barrier.  (A template, so that a build
+// without groups never instantiates the group branch.)
+template <class LaneT>
+HD inline bool group_all(LaneT& ln, bool ok) {
+  if constexpr (!VERIFY_GROUP) {
+    return ok;
+  } else {
+    const int p = ln.gpar;
+    ln.gpar = 1 - p;
+#ifdef __CUDA_ARCH__
+    const bool warp_ok = __all_sync(0xffffffffu, ok);
+    int fail = 0;
+    if ((threadIdx.x & 31) == 0) {
+      int* w = ln.gwords;
+      volatile int* vw = w;
+      if (!warp_ok) atomicOr(&w[p], 1);
+      const int gen = vw[3];
+      __threadfence();
+      if (atomicAdd(&w[2], 1) == ln.gwarps - 1) {
+        atomicExch(&w[2], 0);
+        atomicExch(&w[1 - p], 0);
+        __threadfence();
+        atomicAdd(&w[3], 1);
+      } else {
+        for (unsigned long long spins = 0; vw[3] == gen;)
+          if (++spins > GROUP_SPINS) __trap();
+      }
+      __threadfence();
+      fail = vw[p];
+    }
+    return __shfl_sync(0xffffffffu, fail, 0) == 0;
+#else
+    HostGroup& g = *static_cast<HostGroup*>(ln.ghost);
+    std::unique_lock<std::mutex> lock(g.m);
+    if (!ok) g.fail[p] = true;
+    const unsigned gen = g.gen;
+    if (++g.count == g.n) {
+      g.count = 0;
+      g.fail[1 - p] = false;
+      ++g.gen;
+      g.cv.notify_all();
+    } else {
+      if (!g.cv.wait_for(lock, std::chrono::seconds(GROUP_WAIT_SECONDS),
+                          [&] { return g.abort || g.gen != gen; })) {
+        g.abort = g.stuck = true;
+        g.cv.notify_all();
+      }
+    }
+    return !g.fail[p];
+#endif
+  }
+}
 
 // the sample's view of one subsystem: its p, pfull pair and tolerances
 template <class S>
@@ -570,9 +676,10 @@ HD inline void solve_sub(Lane& ln, const float* u, float* z_all,
     itv = (float)FAST_ITERS + st.k;
     const float keep_thr = KEEP_TOL ? st.tp : st.gf;
     bool ok1 = (st.rm < keep_thr) || ((st.rm1 < st.tl1) && (st.pstall > 0.5f));
-    if (VERIFY_ALWAYS || !ok1) {
-      // the redo: for the lanes that failed the keep test ("merge"), or
-      // for every lane ("always")
+    if (VERIFY_ALWAYS || (VERIFY_GROUP ? !group_all(ln, ok1) : !ok1)) {
+      // the redo: for the lanes that failed the keep test ("merge"), for
+      // every lane of a group with a lane that failed it ("group"), or for
+      // every lane ("always")
       Solved<S> sv;
       full_solve<S>(cx, zs, sv);
       PolishSt<S> st2;

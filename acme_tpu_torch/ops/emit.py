@@ -267,7 +267,7 @@ def _live(g, outs):
 
 _F32 = {"add": "({a} + {b})", "sub": "({a} - {b})", "rsub": "({b} - {a})",
         "mul": "({a} * {b})", "div": "({a} / {b})", "rdiv": "({b} / {a})",
-        "neg": "(-{a})", "exp": "expf({a})", "expm1": "expm1f({a})",
+        "neg": "(-{a})", "exp": "exp_f32({a})", "expm1": "expm1f({a})",
         "tanh": "tanhf({a})", "sqrt": "sqrtf({a})", "abs": "fabsf({a})",
         "sign": "jsign({a})", "min": "jmin({a}, {b})",
         "max": "jmax({a}, {b})", "lt": "({a} < {b})", "le": "({a} <= {b})",
@@ -596,7 +596,8 @@ def model_header(plan):
     # maintain / use the extrapolated start; pivoted main-path solves; the
     # fast path (POLISH_ONLY: zero unguarded steps) with its keep test at
     # the polish target (KEEP_TOL) and its redo for every lane
-    # (VERIFY_ALWAYS); the evaluation modes (0 plain, 1 compensated, 2 df,
+    # (VERIFY_ALWAYS) or for every lane of a lane group with a lane that
+    # fails it (VERIFY_GROUP); the evaluation modes (0 plain, 1 compensated, 2 df,
     # 3 df residual with a plain Jacobian; VERDICT -1: none) of the polish
     # loop, the verdict and the df rescue; the relative tolerances
     b = lambda v: str(bool(v)).lower()
@@ -605,6 +606,7 @@ def model_header(plan):
              f"EXTRAP_USE = {b(plan.extrap_use)}, PIVOT = {b(plan.pivot)}, "
              f"POLISH_ONLY = {b(plan.fast_path and not plan.fast)}, "
              f"VERIFY_ALWAYS = {b(plan.verify_always)}, "
+             f"VERIFY_GROUP = {b(plan.verify_group)}, "
              f"KEEP_TOL = {b(plan.keep_tol)};")
     o.append(f"constexpr int POL_MODE = {_MODES[plan.pol_mode]}, "
              f"VERDICT = {_MODES[plan.verdict]}, "

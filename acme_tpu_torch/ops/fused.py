@@ -12,8 +12,8 @@ update -- with
   * a float32 state carried as unevaluated (hi, lo) pairs, read out and
     updated with error-free-transform (EFT) dot products;
   * the two-tier Newton of the JAX kernel in every configuration of its
-    knobs but one (``fast_verify="group"`` with a fast path): unguarded
-    fast steps or the robust path every sample, a polish loop in plain,
+    knobs: unguarded fast steps or the robust path every sample, a polish
+    loop in plain,
     compensated or double-float ("df") physics, no verdict or a
     compensated, df or df-residual one with df eliminations, and the
     gated Newton -> homotopy -> df-Newton rescue ladder;
@@ -33,10 +33,14 @@ Two implementations of that step share one preparation (``_Plan``):
     vectorised over lanes, with every loop masked per lane.
 
 :func:`fused_step` launches the kernel for CUDA tensors and takes the
-plain version only for CPU tensors.  Loops are per lane in both: a
-lane's result never depends on its neighbours (the JAX kernel's group-wide
-early exits give the same per-lane results, except for the iteration
-counts, which here count each lane's own trips).
+plain version only for CPU tensors.  Loops are per lane in both (the JAX
+kernel's group-wide early exits give the same per-lane results, except for
+the iteration counts, which here count each lane's own trips), so a lane's
+result depends on its neighbours in one configuration only, as in the JAX
+kernel: ``fast_verify="group"`` with a fast path, whose keep test is one
+decision for a whole lane group (``group_lanes``, partitioned as the JAX
+runner partitions its grid, :func:`_group_S`): when any lane of the group
+fails it, every lane of the group takes the redo.
 """
 
 from __future__ import annotations
@@ -66,11 +70,11 @@ LAUNCHES = collections.Counter()
 # CUDA events, recorded on the launch stream just around the kernel
 LAUNCH_EVENTS = None
 
-# the two configurations the port does not run yet, and where they are
-# queued
-_GROUPS = ("ROADMAP Queue 2 item 5: lane groups for fast_verify=\"group\" "
-           "with a fast path")
+# the configuration the port does not run yet, and where it is queued
 _MESH = "ROADMAP Queue 1 item 2: lanes split across GPUs"
+# the lanes of one (sublane) block of the JAX kernel's grid; lane groups
+# are whole blocks
+LANE = 128
 # the conservative configuration of the two-phase power-up (fused.py:406-416)
 _POWERUP_SAFE = dict(fast_iters=0, extrapolate="track", polish_only=False,
                      df_polish="final")
@@ -98,17 +102,8 @@ def _check_choice(knob, v, choices):
         raise ValueError(f"{knob} must be {'|'.join(choices)}, got {v!r}")
 
 
-def _check_step(fast_iters, polish_only, fast_verify, compensated,
-                df_polish):
-    """Raise for the step configurations the port does not run."""
-    if fast_verify == "group" and (fast_iters > 0 or polish_only):
-        # the JAX kernel redoes the whole lane group when one lane fails
-        # (fused.py:2139-2146), so a lane's result depends on its group
-        raise NotImplementedError(
-            "FusedRunner(fast_verify=\"group\") with a fast path "
-            f"(fast_iters={fast_iters}, polish_only={polish_only}) is not "
-            f"ported to acme_tpu_torch yet ({_GROUPS}); use "
-            "fast_verify=\"merge\"")
+def _check_step(compensated, df_polish):
+    """Raise for the step configurations no kernel can run."""
     if df_polish is not False and not compensated:
         # the JAX kernel would evaluate a compensated q it never built
         raise ValueError("df_polish needs compensated=True")
@@ -240,10 +235,26 @@ class FusedRunner:
     (``acme_tpu.ops.fused.FusedRunner``): the robust path every sample
     (``fast_iters=0``), an early-exit polish loop (``polish_fixed=0``) in
     double-float physics (``df_polish=True``).  The JAX bench's production
-    configuration is ``acme_tpu_torch.sweeps.PRODUCTION``.  Not ported:
-    ``fast_verify="group"`` with a fast path, and ``mesh`` (ROADMAP Queue
-    1 item 2); ``mesh_axis`` names an axis of ``mesh``, so it is accepted
-    for the JAX package's signature and read nowhere until then.
+    configuration is ``acme_tpu_torch.sweeps.PRODUCTION``.
+
+    Lane groups: with a fast path (``fast_iters > 0`` or ``polish_only``)
+    and ``fast_verify="group"`` (the default), the keep test of each
+    sample and subsystem is one decision per lane group: if any lane of
+    the group fails it, every lane of the group takes the redo (the
+    robust path from its fast-path point, then the polish) and counts its
+    evaluations, so a passing lane's result depends on its neighbours.
+    The groups are the JAX runner's grid blocks: L must be a multiple of
+    128 (``run`` raises ValueError otherwise), and ``group_lanes`` is
+    partitioned as the JAX runner partitions it (:meth:`_group_S`, whose
+    caps came from the TPU's memory and here define which lanes share a
+    redo): one group holds at most 8192 lanes, a split run at most 4096,
+    and a request under 1024 lanes becomes 1024 (or the whole run when it
+    cannot be split in blocks of 8 x 128); ``group_size(L)`` gives the
+    result.  ``group_lanes`` is read by that configuration only.
+
+    Not ported: ``mesh`` (ROADMAP Queue 1 item 2); ``mesh_axis`` names an
+    axis of ``mesh``, so it is accepted for the JAX package's signature
+    and read nowhere until then.
     """
 
     def __init__(self, model, lane_input_idx: Sequence[int] = (), *,
@@ -257,7 +268,7 @@ class FusedRunner:
                  polish_fixed: int = 0, df_polish: bool = True,
                  df_solve="auto", verdict_jac: str = "df",
                  verdict_refine: int = None, pivot: bool = True,
-                 fast_iters: int = 0, fast_verify: str = "group",
+                 group_lanes: int = 2048, fast_iters: int = 0, fast_verify: str = "group",
                  polish_only: bool = False, fast_keep: str = "gate",
                  stall_strikes: int = 2, plateau_strikes: int = 6,
                  powerup=None, powerup_samples: int = 4096, mesh=None,
@@ -297,6 +308,8 @@ class FusedRunner:
         self.fast_iters = int(fast_iters)
         self.polish_only = bool(polish_only)
         self.fast_verify = fast_verify
+        # the requested group in blocks of LANE lanes (fused.py:456)
+        self.group_S = max(1, int(group_lanes) // LANE)
         self.fast_keep = fast_keep
         # "track": start Newton at zw but keep (zw, wp, dzdp) up to date
         # for a sibling that extrapolates; False: neither use nor maintain
@@ -336,8 +349,7 @@ class FusedRunner:
         self.polish_fixed = max(0, int(polish_fixed))
         self.verdict_refine = int(refine if verdict_refine is None
                                   else verdict_refine)
-        step = ("fast_iters", "polish_only", "fast_verify", "compensated",
-                "df_polish")
+        step = ("compensated", "df_polish")
         _check_step(*(getattr(self, k) for k in step))
         if self._pw_overrides is not None:
             _check_step(*(self._pw_overrides.get(k, getattr(self, k))
@@ -756,6 +768,35 @@ class FusedRunner:
             state = {k: torch.where(ok, v, base[k]) for k, v in state.items()}
         return state
 
+    def _group_S(self, S: int) -> int:
+        """The blocks of LANE lanes in one lane group of a run over S
+        blocks: the largest divisor of S up to the requested group, with
+        the JAX runner's caps (fused.py:2373-2394): at most 8192 lanes in
+        one group, at most 4096 in each group of a split run, and a split
+        smaller than 8 blocks taken to 8 blocks (or to the whole run when S
+        is not a multiple of 8)."""
+        Sg = min(self.group_S, S)
+        Sg = min(Sg, 8192 // LANE)
+        if Sg < S:
+            Sg = min(Sg, 4096 // LANE)
+        while S % Sg:
+            Sg -= 1
+        if Sg < 8 and Sg != S:
+            Sg = 8 if S % 8 == 0 else S
+        return Sg
+
+    def group_size(self, L: int) -> int:
+        """The lanes of one lane group of a run over L lanes (a multiple of
+        LANE, else ValueError as the JAX runner raises, fused.py:2934)."""
+        if L % LANE:
+            raise ValueError(f"lanes ({L}) must be a multiple of {LANE}")
+        return LANE * self._group_S(L // LANE)
+
+    def _group(self, L):
+        """The group size to hand the step: ``group_size(L)`` when the
+        runner's build couples a lane group, else None."""
+        return self.group_size(L) if self.plan.verify_group else None
+
     def _lanes(self, lane_values):
         lane_values = np.asarray(lane_values)
         if lane_values.ndim == 2 and lane_values.shape[0] > 0:
@@ -842,8 +883,7 @@ class FusedRunner:
             r._pw_overrides = None
             for attr, v in self._pw_overrides.items():
                 setattr(r, attr, v)
-            r.plan = _Plan(r)
-            r.plan.kernel_name = "fused_sweep_powerup"
+            r.plan = _Plan(r, "fused_sweep_powerup")
             self._pw_runner = r
         return self._pw_runner
 
@@ -871,7 +911,9 @@ class FusedRunner:
         keys; None starts cold (with ``powerup="steady"`` at each lane's
         own steady state; with ``powerup="safe"`` or a dict, the first
         ``powerup_samples`` run through the power-up sibling, whose state
-        this runner takes over, fused.py:2898-2917)."""
+        this runner takes over, fused.py:2898-2917).  A build that couples
+        lane groups takes L a multiple of 128 (ValueError otherwise, before
+        any step runs)."""
         if state is None and self.powerup_steady:
             state = self.steady_initial_state(lane_values)
         if state is None and self._pw_overrides is not None:
@@ -879,6 +921,8 @@ class FusedRunner:
             T0 = ut.shape[1]
             W = min(self.powerup_samples, T0)
             pr = self._powerup_runner()
+            if self.plan.verify_group or pr.plan.verify_group:
+                self.group_size(self._lanes(lane_values))
             if W >= T0:
                 return pr.run(ut, lane_values, state=None, check=check)
             y1, state, info1 = pr.run(ut[:, :W], lane_values, state=None,
@@ -897,7 +941,8 @@ class FusedRunner:
         if state is None:
             state = self.initial_state(L)
         y, state, fails, iters, floored = fused_step(
-            self.plan, u, lv, tol_l, gate_l, state, self._coef_tables(L))
+            self.plan, u, lv, tol_l, gate_l, state, self._coef_tables(L),
+            self._group(L))
         y = y.permute(2, 1, 0)[:, :self.ny, :]
         info = FusedInfo(fails=fails, iters=iters.T, floored=floored)
         if check:
@@ -915,7 +960,7 @@ class _Plan:
     float64 coefficients, their (a, ah, al, rem) splits, subsystem
     offsets, and the solver configuration (``_build``, fused.py:852-1003)."""
 
-    def __init__(self, r: FusedRunner):
+    def __init__(self, r: FusedRunner, kernel_name="fused_sweep"):
         P, m = r.P, r.model
         # a constant is split here; a _Var stays a handle and is split at
         # run time (fused.py:870-874)
@@ -947,6 +992,9 @@ class _Plan:
         # ("always")
         self.fast_path = self.fast > 0 or r.polish_only
         self.verify_always = r.fast_verify == "always"
+        # the redo for every lane of a lane group when one of them fails
+        # (the launch is handed the group's size)
+        self.verify_group = self.fast_path and r.fast_verify == "group"
         self.keep_tol = r.fast_keep == "tol"
         # relative tolerances, each capped at its anchor
         self.rel_tol = 3.0e-7 if r.rel_tol is None else float(r.rel_tol)
@@ -969,8 +1017,11 @@ class _Plan:
             True if dfp == "comp_final" else
             ("df" if r.verdict_jac == "df" else "df_res"))
         self.rescue_mode = "df" if dfp else self.pol_mode
-        # "fused_sweep_powerup" for the power-up sibling's plan
-        self.kernel_name = "fused_sweep"
+        # the build's name: "fused_sweep", "fused_sweep_powerup" for the
+        # power-up sibling's plan; "_group" for a build that couples lane
+        # groups
+        self.kernel_name = kernel_name + ("_group" if self.verify_group
+                                          else "")
         self.P_pol = r.polish_iters if comp else 1
         self.P_fix = r.polish_fixed if comp else 0
         self.refine, self.vrefine = r.refine, r.verdict_refine
@@ -1023,23 +1074,38 @@ class _Plan:
 
 # -- dispatch -----------------------------------------------------------------
 
-def fused_step(plan, u, lv, tol, gate, state, coef=None):
+def fused_step(plan, u, lv, tol, gate, state, coef=None, group=None):
     """Run the fused step over the whole time axis.
 
     Inputs are float32 tensors on one device: u (T, nu_t), lv (nu_l, L),
     tol (nsub, L), gate (3 nsub, L), the state dict of (n, L) tensors and
     ``coef``, the (hi, lo) per-lane coefficient tables of a multi-model
     runner, each (nvar, L) (``FusedRunner._coef_tables``; None for a plan
-    without varying coefficients).
+    without varying coefficients).  ``group``: the lanes of one lane group
+    (``FusedRunner.group_size(L)``), which a plan that couples lane groups
+    (``plan.verify_group``) needs and every other plan ignores.
     Returns (y (T, ny, L), new state, fails (L,), iters (nsub, L),
     floored (L,)).  CUDA tensors go through the kernel (or raise); the
     plain torch version runs only for CPU tensors."""
     dev = u.device
     if dev.type == "cuda":
-        return _launch_kernel(plan, u, lv, tol, gate, state, coef)
+        return _launch_kernel(plan, u, lv, tol, gate, state, coef, group)
     if dev.type == "cpu":
-        return plain_run(plan, u, lv, tol, gate, state, coef)
+        return plain_run(plan, u, lv, tol, gate, state, coef, group)
     raise ValueError(f"unsupported device {dev}")
+
+
+def _group_lanes(plan, L, group):
+    """The lanes of one lane group for a run of ``plan`` over L lanes:
+    ``group`` when the plan couples lane groups (a multiple of LANE that
+    divides L, else ValueError), L for every other plan."""
+    if not plan.verify_group:
+        return L
+    if group is None or group <= 0 or group % LANE or L % group:
+        raise ValueError(
+            f"this plan couples lane groups: pass group=runner.group_size(L)"
+            f" (a multiple of {LANE} dividing L = {L}), got {group!r}")
+    return int(group)
 
 
 def _coef_pair(plan, coef, like):
@@ -1056,10 +1122,15 @@ def _coef_pair(plan, coef, like):
     return z, z
 
 
-def _library_call(fn, plan, u, lv, tol, gate, state, coef, *extra):
-    """Check the inputs, allocate the outputs and call the library entry
-    ``fn`` (the CUDA launch or its host twin) on them."""
+def _library_call(lib, entry, plan, u, lv, tol, gate, state, coef, group,
+                  *extra):
+    """Check the inputs, allocate the outputs and call the entry ``entry``
+    of library ``lib`` (the CUDA launch or its host twin) on them.  A plan
+    that couples lane groups gets the group's size and, for the card, each
+    group's barrier words, zeroed: (G, 4) int32 (two flag slots, the
+    arrival count and the generation)."""
     L = lv.shape[1]
+    Lg = _group_lanes(plan, L, group)
     T = u.shape[0]
     dev = u.device
     dims = _state_dims(plan)
@@ -1086,17 +1157,32 @@ def _library_call(fn, plan, u, lv, tol, gate, state, coef, *extra):
     iters = torch.empty((max(plan.nsub, 1), L), dtype=torch.int32,
                         device=dev)
     floored = torch.empty((L,), dtype=torch.int32, device=dev)
+    words = (torch.zeros((L // Lg, 4), dtype=torch.int32, device=dev)
+             if plan.verify_group else None)
     ptrs = [t.data_ptr() for t in args] \
         + [y.data_ptr()] + [out[k].data_ptr() for k in STATE_KEYS] \
         + [fails.data_ptr(), iters.data_ptr(), floored.data_ptr()]
-    rc = fn(*[ctypes.c_void_p(p) for p in ptrs], ctypes.c_int(T),
-            ctypes.c_int(L), *extra)
+    rc = getattr(lib, entry)(*[ctypes.c_void_p(p) for p in ptrs],
+                             ctypes.c_int(T), ctypes.c_int(L),
+                             ctypes.c_void_p(None if words is None
+                                             else words.data_ptr()),
+                             ctypes.c_int(Lg), *extra)
     if rc != 0:
-        raise RuntimeError(f"fused kernel failed: CUDA error {rc}")
+        # a CUDA build names its error; a host build fails only in a
+        # lane group's threads
+        what = (lib.acme_cuda_error(rc).decode()
+                if entry == "acme_fused_launch" else
+                _HOST_ERRORS.get(rc, "unknown"))
+        raise RuntimeError(f"fused kernel failed: error {rc} ({what})")
     return y, out, fails, iters, floored
 
 
-def _launch_kernel(plan, u, lv, tol, gate, state, coef=None):
+# the host build's error codes (csrc/fused.cu acme_fused_host)
+_HOST_ERRORS = {1: "a lane group's threads did not all start",
+                2: "a lane group's barrier was stuck"}
+
+
+def _launch_kernel(plan, u, lv, tol, gate, state, coef=None, group=None):
     from .build import load_kernel
     lib = load_kernel(plan)
     with torch.cuda.device(u.device):
@@ -1105,8 +1191,9 @@ def _launch_kernel(plan, u, lv, tol, gate, state, coef=None):
         if timed:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record(stream)
-        result = _library_call(lib.acme_fused_launch, plan, u, lv, tol, gate,
-                               state, coef, ctypes.c_int(u.device.index),
+        result = _library_call(lib, "acme_fused_launch", plan, u, lv, tol,
+                               gate, state, coef, group,
+                               ctypes.c_int(u.device.index),
                                ctypes.c_void_p(stream.cuda_stream))
         if timed:
             ev[1].record(stream)
@@ -1115,11 +1202,13 @@ def _launch_kernel(plan, u, lv, tol, gate, state, coef=None):
     return result
 
 
-def host_step(lib, plan, u, lv, tol, gate, state, coef=None):
+def host_step(lib, plan, u, lv, tol, gate, state, coef=None, group=None):
     """The kernel's own step compiled for the host (``build.load_host``),
-    lane by lane on CPU tensors: the CPU tests' view of ``csrc``."""
-    return _library_call(lib.acme_fused_host, plan, u, lv, tol, gate, state,
-                         coef)
+    lane by lane on CPU tensors (a build that couples lane groups: each
+    lane of a group on its own thread, one group after another): the CPU
+    tests' view of ``csrc``."""
+    return _library_call(lib, "acme_fused_host", plan, u, lv, tol, gate,
+                         state, coef, group)
 
 
 def _state_dims(plan):
@@ -1235,8 +1324,9 @@ class _SubSolver:
     """One subsystem's per-sample solve for all lanes (the body of the JAX
     kernel's subsystem loop, fused.py:1072-2266), with per-lane loops."""
 
-    def __init__(self, plan, s, ksub, lanes_like, tol, gate, env):
+    def __init__(self, plan, s, ksub, lanes_like, tol, gate, env, group):
         self.plan, self.s, self.env = plan, s, env
+        self.group = group
         nsub = plan.nsub
         self.ltol = tol[ksub]
         self.lgate = gate[ksub]
@@ -1636,7 +1726,8 @@ class _SubSolver:
         """The fast path: ``fast`` unguarded steps with the
         already-converged guard (none with polish_only), the polish, the
         keep test, and the robust path redone for the lanes that fail it
-        ("merge") or for every lane ("always") (fused.py:2018-2146)."""
+        ("merge"), for every lane of a lane group with a lane that fails it
+        ("group") or for every lane ("always") (fused.py:2018-2146)."""
         plan, nn = self.plan, self.s["nn"]
         zs_cur = z0
         for _ in range(plan.fast):
@@ -1652,7 +1743,14 @@ class _SubSolver:
         keep_thr = st["tp"] if plan.keep_tol else st["gf"]
         ok1 = (st["rm"] < keep_thr) | ((st["rm1"] < st["tl1"])
                                        & (st["pstall"] > 0.5))
-        need = torch.ones_like(ok1) if plan.verify_always else ~ok1
+        if plan.verify_always:
+            need = torch.ones_like(ok1)
+        elif plan.verify_group:
+            # jax.lax.cond(jnp.all(ok1), keep, redo) over each group
+            g = self.group
+            need = (~ok1).view(-1, g).any(1).repeat_interleave(g)
+        else:
+            need = ~ok1
         if bool(need.any()):
             zs4, _, _, itv4 = self.full_solve(zs_cur)
             st2 = self.polish_all(zs4)
@@ -1746,11 +1844,13 @@ class _SubSolver:
                 dz_n)
 
 
-def plain_run(plan, u, lv, tol, gate, state, coef=None):
+def plain_run(plan, u, lv, tol, gate, state, coef=None, group=None):
     """The plain torch version of the kernel: same inputs and outputs as
-    :func:`fused_step`, vectorised over lanes, per-lane loop semantics."""
+    :func:`fused_step`, vectorised over lanes, per-lane loop semantics (and
+    the keep test's redo per lane group where the plan couples them)."""
     T = u.shape[0]
     L = lv.shape[1]
+    Lg = _group_lanes(plan, L, group)
     nsub = plan.nsub
     env = _Env(plan.nvar, *_coef_pair(plan, coef, lv))
     st = {k: state[k].clone() for k in STATE_KEYS}
@@ -1769,7 +1869,7 @@ def plain_run(plan, u, lv, tol, gate, state, coef=None):
     floored = torch.zeros(L, dtype=torch.int32, device=u.device)
     iters = torch.zeros((max(nsub, 1), L), dtype=torch.int32,
                         device=u.device)
-    solvers = [_SubSolver(plan, s, k, like, tol, gate, env)
+    solvers = [_SubSolver(plan, s, k, like, tol, gate, env, Lg)
                for k, s in enumerate(plan.subs)]
     for t in range(T):
         u_full = [None] * plan.nu

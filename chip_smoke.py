@@ -21,10 +21,13 @@ Phases, each printed with its seconds:
      (``acme_tpu_torch.ablate``: every configuration of the JAX
      package's ``_ablate.py``, the runner's own defaults and the knob
      values ``_ablate.py`` does not ablate, equal configurations sharing
-     one build) and of the main path's two
-     stronger verdict tiers (``sweeps.VERDICT_TIERS``); meanwhile, in
-     worker processes on the host, the presets path's float64
-     references;
+     one build), of the main path's two
+     stronger verdict tiers (``sweeps.VERDICT_TIERS``) and of the groups
+     path (the main path's model under docs/tpu.md's quick-start with
+     ``fast_iters=1``, the JAX defaults otherwise: lane groups of 2048,
+     the build that couples them, ``VERIFY_GROUP``, and its twin with
+     ``fast_verify="merge"``); meanwhile, in worker processes on the
+     host, the presets path's float64 references;
   4. kernel against its plain torch version on the card: the diode
      clipper (128 lanes x 256 samples), birdie with its volume pot as a
      lane input (128 x 32), the Super Over (4096 x 32 from the seeds),
@@ -33,8 +36,13 @@ Phases, each printed with its seconds:
      build (the next 64 samples, 16 for the full model, from the state
      the power-up build left); each ablation build as the level
      model's (4096 x 64 from that state, its power-up build from cold),
-     and the verdict tiers at 4096 x 16 from the seeds; a kernel's time
-     is the median of three launches queued behind a warm-up launch;
+     and the verdict tiers at 4096 x 16 from the seeds; the group build
+     at 4096 x 16 from the seeds in its runner's partition (two groups
+     of 2048), in one group of 4096 and in four of 1024, each bit for
+     bit in y, state, fails, floored and iters, then its merge twin, and
+     how many lanes' evaluations differ between the four (reported); a
+     kernel's time is the median of three launches queued behind a
+     warm-up launch;
   5. the main path: 4096 lanes x 44100 samples from the seeds, chained
      for seven windows as the JAX package's bench chains them, each timed
      whole and kernel alone; window 1 is scored against the committed
@@ -69,11 +77,20 @@ Phases, each printed with its seconds:
      main path again (seven windows from the seeds) under the full-df
      verdict ("plainfinal") and under it with a df elimination on every
      subsystem ("dfsolve"), scored and gated as phase 5;
+  5g. the groups path: three chained windows of the group build from
+     the seeds, scored as phase 5 (window 1 against "_pw", window 3
+     against "_st") and gated at the main path's worst and the level
+     path's worst as its median (GROUPS_PARITY_MEDIAN_DB: the JAX
+     defaults have no verdict tier), then one window of its merge twin
+     from the same seeds: its cost, its dB against the references and
+     against the group run's window 1, and the gate that the branch ran
+     (window 1's evaluations differ from the twin's on some lane);
   6. the kernel launch counts of each path, by build (library).
 The "kernels" line has one entry per build: the main path's, the
 production and power-up builds of the level, presets and full paths, each
 ablation build (the level path's production build is also the ablation's
-cf2) and its power-up build, and the two verdict tiers' builds.
+cf2) and its power-up build, the two verdict tiers' builds, and the
+groups path's two.
 Each kernel's bound (the least time the card could take for the same
 work) is the larger of its float operations, counted from the generated
 code and the build's configuration (``ops.emit.op_counts``: its
@@ -139,6 +156,14 @@ ABLATION_GATED = ("base", "cf2")
 POTS_CHECK_SAMPLES = 32
 FULL_CHECK_SAMPLES = 16
 TIER_CHECK_SAMPLES = 16
+# the groups path's chained windows (window 1 against "_pw", the last
+# against "_st"), and its gate: the main path's worst; its median at the
+# level path's worst, since its configuration (the JAX defaults: a df
+# polish loop and no verdict, so z carries no lo part) reads about -73 dB
+# on these lanes with or without lane groups and with or without a fast
+# path, where the main path's compensated verdict reads -98 dB
+GROUPS_WINDOWS = 3
+GROUPS_PARITY_MEDIAN_DB = -65.0
 # phase 4's timed launches of a kernel, queued behind its warm-up launch
 CHECK_LAUNCHES = 3
 # nvcc processes at a time
@@ -198,10 +223,13 @@ def bound(plan, L, T, evals, F, op_counts):
         ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def compare_case(name, fr, u_time, lane_values, state, torch, F, op_counts):
+def compare_case(name, fr, u_time, lane_values, state, torch, F, op_counts,
+                 group=None, exact=False):
     """Kernel (fused_step on CUDA tensors) against plain_run on the same
-    CUDA tensors; returns (a dict of the numbers it printed, the kernel's
-    state)."""
+    CUDA tensors, in lane groups of ``group`` lanes where the build couples
+    them; ``exact``: fail unless the two agree bit for bit in y, state,
+    fails, floored and iters.  Returns (a dict of the numbers it printed
+    and the kernel's iters, the kernel's state)."""
     u, lv, tol, gate = fr.prepare_inputs(u_time, lane_values)
     coef = fr._coef_tables(lv.shape[1])
     state = {k: v.contiguous() for k, v in state.items()}
@@ -213,7 +241,7 @@ def compare_case(name, fr, u_time, lane_values, state, torch, F, op_counts):
     F.LAUNCH_EVENTS = []
     for _ in range(1 + CHECK_LAUNCHES):
         yk, stk, fk, ik, flk = F.fused_step(fr.plan, u, lv, tol, gate,
-                                            state, coef)
+                                            state, coef, group)
     torch.cuda.synchronize()
     ms_k = float(np.median([a.elapsed_time(b)
                             for a, b in F.LAUNCH_EVENTS[1:]]))
@@ -221,7 +249,7 @@ def compare_case(name, fr, u_time, lane_values, state, torch, F, op_counts):
     ev[0].record()
     with torch.inference_mode():
         yp, stp, fp, ip, flp = F.plain_run(fr.plan, u, lv, tol, gate, state,
-                                           coef)
+                                           coef, group)
     ev[1].record()
     torch.cuda.synchronize()
     ms_p = ev[0].elapsed_time(ev[1])
@@ -248,9 +276,11 @@ def compare_case(name, fr, u_time, lane_values, state, torch, F, op_counts):
     b_ms, b_by = bound(fr.plan, L, T, evals, F, op_counts)
     same = bool(torch.equal(yk, yp)) and all(
         bool(torch.equal(stk[k], stp[k])) for k in stp)
+    iters_eq = bool(torch.equal(ik, ip))
     log(f"  {name}: L={L} T={T}  kernel {ms_k:.3f} ms, "
         f"plain {ms_p:.3f} ms, bound {b_ms:.4f} ms ({b_by})  "
-        f"{'bit-identical' if same else 'NOT bit-identical'}  y worst lane "
+        f"{'bit-identical' if same else 'NOT bit-identical'} (iters "
+        f"{'equal' if iters_eq else 'differ'})  y worst lane "
         f"{worst}: {db[worst]:.1f} dB (median {np.median(db):.1f}), "
         f"max|dy| {max_abs:.3e}  fails {int(fk.sum())}/{int(fp.sum())} "
         f"floored {int(flk.sum())}/{int(flp.sum())}  evals/lane-sample "
@@ -263,10 +293,12 @@ def compare_case(name, fr, u_time, lane_values, state, torch, F, op_counts):
         bad.append("fails/floored differ")
     bad += [f"state {k} {v:.1f} dB" for k, v in st_db.items()
             if v > KERNEL_DB]
+    if exact and not (same and iters_eq and fails_eq and floored_eq):
+        bad.append("not bit for bit in y, state, fails, floored and iters")
     if bad:
         raise SmokeFailure(f"{name}: kernel disagrees with plain: {bad}")
     return dict(ms=ms_k, plain_ms=ms_p, max_abs_err=max_abs, bound_ms=b_ms,
-                bound_by=b_by), stk
+                bound_by=b_by, iters=ik), stk
 
 
 def drive_path(label, fr, u, lane_values, state, windows, keep, card, torch,
@@ -275,8 +307,9 @@ def drive_path(label, fr, u, lane_values, state, windows, keep, card, torch,
     timed whole (CUDA events around the call) and each kernel launch
     alone (``fused.LAUNCH_EVENTS``).  The launch counts are set to 0 just
     before and read just after.  Returns (the first and the last window's
-    outputs on the lanes ``keep``, the launch counts by build, and each
-    window's (fails, floored) summed over the lanes)."""
+    outputs on the lanes ``keep``, the launch counts by build, each
+    window's (fails, floored) summed over the lanes, and each window's
+    (ms, FusedInfo, kernel ms of each launch))."""
     T = u.shape[1]
     L = lane_values.shape[0]
     F.LAUNCHES.clear()
@@ -323,7 +356,7 @@ def drive_path(label, fr, u, lane_values, state, windows, keep, card, torch,
             f"{card}")
     counts = [(int(info.fails.sum()), int(info.floored.sum()))
               for _, info, _ in rows]
-    return y_first, y_last, launches, counts
+    return y_first, y_last, launches, counts, rows
 
 
 def steady_windows_clean(label, counts):
@@ -470,6 +503,89 @@ def score_presets(label, lanes, levels, drive, tone, y_first, refs, split,
             bad.append(f"{name} worst {worst:.1f} dB")
     if bad:
         raise SmokeFailure(f"{label}: parity outside {worst_db} dB: {bad}")
+
+
+def group_checks(fr_g, fr_m, u, lane_values, seed, torch, F, op_counts):
+    """Phase 4's lane-group rows: the group build against the plain
+    version from the seeds in the runner's partition (two groups of 2048),
+    then as the partitions of ``group_lanes`` 4096 (one group) and 1024
+    (four), each bit for bit, and the merge twin; then how many lanes'
+    evaluations differ between them (reported, not gated: 16 samples may
+    hold no failing lane, or one in every group).  Returns the rows of
+    the runner's partition and of the merge twin."""
+    L = lane_values.shape[0]
+    out, iters = {}, {}
+    for request in (fr_g.group_S * 128, 4096, 1024):
+        part = copy.copy(fr_g)
+        part.group_S = request // 128
+        Lg = part.group_size(L)
+        label = f"{L // Lg} x {Lg}"
+        row, _ = compare_case(f"groups path, group_lanes={request}: "
+                              f"groups {label}", fr_g, u, lane_values, seed,
+                              torch, F, op_counts, group=Lg, exact=True)
+        out.setdefault("group", row)
+        iters[f"groups {label}"] = row["iters"]
+    out["merge"], _ = compare_case("groups path's merge twin", fr_m, u,
+                                   lane_values, seed, torch, F, op_counts,
+                                   exact=True)
+    iters["merge"] = out["merge"]["iters"]
+    names = list(iters)
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            n = int((iters[a] != iters[b]).any(0).sum())
+            log(f"  groups path: lanes whose evaluations differ, {a} vs "
+                f"{b}: {n} of {L}")
+    return out
+
+
+def groups_path(fr_g, fr_m, u, lane_values, seeds, lanes, descs, keys, card,
+                torch, F, op_counts):
+    """Phase 5g: the group build's chained windows from the seeds, scored
+    as the main path (window 1 against "_pw", the last against "_st"),
+    then one window of its merge twin from the same seeds: its cost, its
+    dB against the group run's window 1 on every lane, and the gate that
+    the branch ran (window 1's evaluations differ on some lane).  Returns
+    the launch counts of the group run and of the twin's."""
+    every = np.arange(lane_values.shape[0])
+    y1, y_last, launches, counts, rows = drive_path(
+        "5g groups path", fr_g, u, lane_values, seeds[0], GROUPS_WINDOWS,
+        every, card, torch, F, op_counts)
+    log(f"[5g groups path] (fails, floored) by window: {counts}")
+    score("5g groups path", lanes, descs, y1[lanes], y_last[lanes], keys,
+          GROUPS_WINDOWS, PARITY_WORST_DB, GROUPS_PARITY_MEDIAN_DB)
+    del y_last
+    ym, _, m_launches, m_counts, m_rows = drive_path(
+        "5g groups path, merge twin", fr_m, u, lane_values, seeds[1], 1,
+        every, card, torch, F, op_counts)
+    err = np.abs(ym - y1).max(axis=1).astype(np.float64)
+    peak = np.maximum(np.abs(y1).max(axis=1).astype(np.float64), 1e-30)
+    db = 20 * np.log10(err / peak + 1e-300)
+    # the twin's window 1 against the float64 references (reported)
+    with np.load(os.path.join(HERE, ".hostref_cache.npz")) as cache:
+        twin = [20 * np.log10(
+            float(np.abs(ym[i] - cache[k + "_pw"]).max())
+            / max(float(np.abs(cache[k + "_st"]).max()), 1e-12) + 1e-300)
+            for i, k in zip(lanes, keys)]
+    it_g, it_m = rows[0][1].iters, m_rows[0][1].iters
+    differ = int((it_g != it_m).any(dim=1).sum())
+    ev_g = float(it_g.sum(1).double().mean()) / u.shape[1]
+    ev_m = float(it_m.sum(1).double().mean()) / u.shape[1]
+    (ms_g, _, k_g), (ms_m, _, k_m) = rows[0], m_rows[0]
+    log(f"[5g groups path] merge twin, window 1: (fails, floored) "
+        f"{m_counts[0]}; against the float64 references worst "
+        f"{max(twin):.1f} dB, median {np.median(twin):.1f} dB over "
+        f"{len(twin)} lanes (reported); against the group run's window 1 "
+        f"worst {db.max():.1f} dB, median {np.median(db):.1f} dB over "
+        f"{len(db)} lanes; evals/lane-sample group {ev_g:.3f}, merge "
+        f"{ev_m:.3f}; lanes whose evaluations differ: {differ} of "
+        f"{len(db)}; the coupling costs {ms_g - ms_m:.1f} ms per window "
+        f"({ms_g:.1f} against {ms_m:.1f}; kernel {sum(k_g):.1f} against "
+        f"{sum(k_m):.1f}) | card: {card}")
+    if differ == 0:
+        raise SmokeFailure("5g groups path: window 1's evaluations equal "
+                           "the merge twin's on every lane: nothing on the "
+                           "path exercised the lane group")
+    return launches, m_launches
 
 
 def describe(name, m, fr, secs):
@@ -660,6 +776,20 @@ def main():
                 tiers[name])
             runners["tier " + name] = tiers[name]
             keys["tier " + name] = start(ex, "tier " + name, tiers[name])
+        # the groups path (docs/tpu.md's quick-start with its first
+        # production knob, JAX defaults otherwise: lane groups of 2048) and
+        # its merge twin, on copies of the main path's model as built
+        groups, group_seeds = {}, {}
+        for mode in ("group", "merge"):
+            groups[mode] = FusedRunner(copy.deepcopy(m_so_built),
+                                       lane_input_idx=(1, 2), device=dev,
+                                       fast_iters=1, fast_verify=mode)
+            group_seeds[mode] = load_steady_seed(
+                os.path.join(HERE, ".steadyseed_cache.npz"), SEED_TAG,
+                groups[mode])
+            runners["groups " + mode] = groups[mode]
+            keys["groups " + mode] = start(ex, "groups " + mode,
+                                           groups[mode])
         t_runners = time.time() - t1
         pre_refs = pre_refs()
         t_refs = time.time() - t1
@@ -690,7 +820,8 @@ def main():
         B.load_kernel(r.plan)
     log(f"[2 build] {len(libs)} builds for {len(runners)} runners, total "
         f"{time.time() - t0:.1f}s (parallel; beside them "
-        f"{len(abl) + 1 + len(tiers)} runners of the step configurations "
+        f"{len(abl) + 1 + len(tiers) + len(groups)} runners of the step "
+        "configurations "
         f"prepared in {t_runners:.1f}s, and {len(pre_lanes)} host "
         f"references x {PRESETS_REF_SAMPLES} samples done at "
         f"{t_refs:.1f}s)")
@@ -745,10 +876,17 @@ def main():
         checks[n], _ = compare_case(" = ".join(shared), fr, *args, torch, F,
                                     op_counts)
     log(f"[4 kernel vs plain] step configurations {time.time() - t0:.1f}s")
+    t0 = time.time()
+    group_rows = group_checks(groups["group"], groups["merge"],
+                              u[:, :TIER_CHECK_SAMPLES], lane_values,
+                              group_seeds["group"], torch, F, op_counts)
+    checks["groups group"] = group_rows["group"]
+    checks["groups merge"] = group_rows["merge"]
+    log(f"[4 kernel vs plain] lane groups {time.time() - t0:.1f}s")
 
     t0 = time.time()
     lanes = S.select_parity_lanes(L_MAIN, 16, S.stress_lanes("pots", L_MAIN))
-    y_pw, y_st, main_launches, _ = drive_path(
+    y_pw, y_st, main_launches, _, _ = drive_path(
         "5 main path", fr_so, u, lane_values, seed, WINDOWS, lanes, card,
         torch, F, op_counts)
     score("5 main path", lanes,
@@ -762,7 +900,7 @@ def main():
     t0 = time.time()
     lanes = S.select_parity_lanes(L_MAIN, 16, S.stress_lanes("level",
                                                              L_MAIN))
-    y_pw, y_st, level_launches, counts = cold_path(
+    y_pw, y_st, level_launches, counts, _ = cold_path(
         "5b level path", fr_lvl, u, lv_level, lanes, card, torch, F,
         op_counts)
     steady_windows_clean("5b level path", counts)
@@ -774,7 +912,7 @@ def main():
     log(f"[5b level path] {time.time() - t0:.1f}s")
 
     t0 = time.time()
-    y_pw, _, presets_launches, counts = cold_path(
+    y_pw, _, presets_launches, counts, _ = cold_path(
         "5c presets path", fr_pre, u, lv_pre, pre_lanes, card, torch, F,
         op_counts)
     steady_windows_clean("5c presets path", counts)
@@ -785,7 +923,7 @@ def main():
 
     t0 = time.time()
     lanes = S.select_parity_lanes(L_MAIN, 8, [])
-    y_pw, y_st, full_launches, counts = cold_path(
+    y_pw, y_st, full_launches, counts, _ = cold_path(
         "5d full path", fr_full, u, lv_level, lanes, card, torch, F,
         op_counts)
     log(f"[5d full path] (fails, floored) by window: {counts}")
@@ -813,7 +951,7 @@ def main():
     tier_launches = {}
     for name, fr in tiers.items():
         label = f"5f verdict tier {name}"
-        y_pw, y_st, tier_launches[name], _ = drive_path(
+        y_pw, y_st, tier_launches[name], _, _ = drive_path(
             label, fr, u, lane_values, tier_seeds[name], WINDOWS, lanes,
             card, torch, F, op_counts)
         score(label, lanes,
@@ -823,6 +961,17 @@ def main():
                          tone[i], powerup="steady") for i in lanes],
               WINDOWS, PARITY_WORST_DB, PARITY_MEDIAN_DB)
     log(f"[5f verdict tiers] {time.time() - t0:.1f}s")
+
+    t0 = time.time()
+    lanes = S.select_parity_lanes(L_MAIN, 16, S.stress_lanes("pots", L_MAIN))
+    groups_launches, twin_launches = groups_path(
+        groups["group"], groups["merge"], u, lane_values,
+        (group_seeds["group"], group_seeds["merge"]), lanes,
+        [f"drive {drive[i]:.3f}, tone {tone[i]:.3f}" for i in lanes],
+        [S.ref_key("pots", "chain", FS, T, MAIN_REPS, 1.0, drive[i],
+                   tone[i], powerup="steady") for i in lanes],
+        card, torch, F, op_counts)
+    log(f"[5g groups path] {time.time() - t0:.1f}s")
 
     # one entry per build: (name, runner key, the launch counts of the
     # path it runs on, how many of them are this build's)
@@ -859,6 +1008,10 @@ def main():
         entries.append((f"fused_sweep (Super Over pots, verdict tier "
                         f"{name})", "tier " + name, tier_launches[name],
                         WINDOWS))
+    entries.append(("fused_sweep_group (Super Over pots, groups path)",
+                    "groups group", groups_launches, GROUPS_WINDOWS))
+    entries.append(("fused_sweep (Super Over pots, groups path's merge "
+                    "twin)", "groups merge", twin_launches, 1))
     # one launch per window; a cold path's window 1 adds the power-up
     for path, launches, keys_ in (
             ("main path", main_launches, ("superover",)),
@@ -884,6 +1037,15 @@ def main():
         if tier_launches[name] != expected:
             raise SmokeFailure(f"verdict tier {name} launches "
                                f"{tier_launches[name]}, expected {expected}")
+    for path, launches, key, n in (
+            ("groups path", groups_launches, "groups group",
+             GROUPS_WINDOWS),
+            ("groups path's merge twin", twin_launches, "groups merge", 1)):
+        expected = {lib_of[key]: n}
+        log(f"[6 launches] {path}: {launches}")
+        if launches != expected:
+            raise SmokeFailure(f"{path} launches {launches}, expected "
+                               f"{expected}")
 
     kernels = []
     for name, key, launches, _ in entries:

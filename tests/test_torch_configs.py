@@ -3,7 +3,8 @@ against the JAX package, one knob value at a time.
 
 The JAX package's ``FusedRunner`` runs every configuration of its step
 knobs (``acme_tpu/ops/fused.py:303-547``); the port runs all of them but
-``fast_verify="group"`` with a fast path, and ``mesh``.  One case per row
+``mesh`` (lane groups, ``fast_verify="group"`` with a fast path, are
+tests/test_torch_groups.py's).  One case per row
 of the table of branches (each knob value over the bench's production
 configuration ``PRODUCTION``, or over the JAX defaults where the value
 only means something there), the JAX defaults themselves and the ``FAST``
@@ -152,11 +153,11 @@ def test_redo_effort_matches_jax_interpret(case):
 
 def test_constructor_defaults_are_the_jax_packages():
     """Every keyword the two runners share has the same default; the port
-    adds ``device`` and drops only the Mosaic-only ones."""
+    adds ``device`` and drops only the Mosaic-only ones (``group_lanes``
+    is the JAX package's and defines the lane groups)."""
     jp = inspect.signature(JaxRunner).parameters
     tp = inspect.signature(FusedRunner).parameters
-    assert set(jp) - set(tp) == {"time_chunk", "group_lanes", "interpret",
-                                 "compile_cache"}
+    assert set(jp) - set(tp) == {"time_chunk", "interpret", "compile_cache"}
     assert set(tp) - set(jp) == {"device"}
     for name in set(jp) & set(tp):
         assert tp[name].default == jp[name].default, name

@@ -166,3 +166,45 @@ def test_configurations_match_plain_on_card(config_runners, model, config):
     u_time = (amp * np.sin(2 * np.pi * 1000 / FS * np.arange(64)))[None, :]
     _kernel_vs_plain(fr, u_time, np.linspace(0.1, 2.0, 128)[:, None],
                      fr.initial_state(128))
+
+
+@pytest.mark.cuda
+def test_lane_groups_match_plain_on_card():
+    """A build that couples lane groups (cooperative launch, a barrier in
+    device memory at every keep test) on the clipper, two groups of 1024
+    lanes x 64 samples, the first group's levels where keep tests fail,
+    the second's where they never do: bit for bit as the plain version in
+    y, state, fails, floored and iters; the redo reaches the passing lanes
+    of the first group only (against the merge build); and a grid the
+    card cannot hold resident at once raises instead of running."""
+    dev = _card()
+    rng = np.random.default_rng(5)
+    lv = np.concatenate([rng.uniform(0.01, 3.0, 1024),
+                         rng.uniform(0.01, 0.05, 1024)])[:, None]
+    u_time = (1.5 * np.sin(2 * np.pi * 1000 / FS * np.arange(64)))[None, :]
+    its = {}
+    for mode in ("group", "merge"):
+        fr = FusedRunner(diodeclipper_model(), lane_scale_idx=(0,),
+                         **dict(PROD, fast_verify=mode, group_lanes=1024),
+                         device=dev)
+        u, lvt, tol, gate = fr.prepare_inputs(u_time, lv)
+        args = (fr.plan, u, lvt, tol, gate, fr.initial_state(2048),
+                fr._coef_tables(2048), fr._group(2048))
+        before = sum(F.LAUNCHES.values())
+        kern = F.fused_step(*args)
+        assert sum(F.LAUNCHES.values()) == before + 1
+        plain = F.plain_run(*args)
+        for name, k, p in zip(("y", "state", "fails", "iters", "floored"),
+                              kern, plain):
+            if name == "state":
+                for key in p:
+                    assert torch.equal(k[key], p[key]), key
+            else:
+                assert torch.equal(k, p), name
+        its[mode] = kern[3].cpu()
+    moved = (its["group"] != its["merge"]).any(0)
+    assert moved[:1024].any() and not moved[1024:].any()
+    fr = FusedRunner(diodeclipper_model(), lane_scale_idx=(0,),
+                     **dict(PROD, fast_verify="group"), device=dev)
+    with pytest.raises(RuntimeError, match="Cooperative"):
+        fr.run(u_time[:, :1], np.full((1 << 18, 1), 0.5))

@@ -68,7 +68,8 @@ def compare_with_jax(model, lidx, u, lv, jax_state=None):
     tr = FusedRunner(copy.deepcopy(model), lane_input_idx=lidx, **PROD,
                      device="cpu")
     yj, _, ij = jr.run(u, lv, state=jax_state, check=False)
-    state = None if jax_state is None else state_from_jax(jax_state)
+    state = None if jax_state is None else state_from_jax(jax_state,
+                                                             device="cpu")
     yt, _, it = tr.run(u, lv, state=state, check=False)
     db = lane_db(yt.numpy(), np.asarray(yj))
     assert db.max() < -90.0, (db.max(), int(db.argmax()))
@@ -203,7 +204,8 @@ def test_state_carries_across_packages():
     y32, _, _ = jax_runner(model, (), 32).run(u, lv, check=False)
     _, js, _ = jax_runner(model, (), 16).run(u[:, :16], lv, check=False)
     tr = FusedRunner(copy.deepcopy(model), **PROD, device="cpu")
-    y2, _, _ = tr.run(u[:, 16:], lv, state=state_from_jax(js), check=False)
+    y2, _, _ = tr.run(u[:, 16:], lv, state=state_from_jax(js, device="cpu"),
+                      check=False)
     db = lane_db(y2.numpy(), np.asarray(y32)[:, :, 16:])
     assert db.max() < -90.0
 

@@ -16,7 +16,11 @@ the kernel's per-lane step lane by lane.  Against the plain torch version:
   clippers, three Super Over presets) and for the un-decomposed Super Over
   (one 7x7 subsystem with five right-hand columns in its df elimination):
   y within -90 dB of each lane's peak (the bound of the other comparisons;
-  so far the two agree exactly), with fails and floored equal.
+  so far the two agree exactly), with fails and floored equal;
+* a build that couples lane groups (each lane of a group on a thread of
+  its own, meeting the others at every keep test), two groups of 1024:
+  bit for bit in y, state, fails, floored and iters (both sides round
+  the float64 exp on the CPU).
 
 Skipped where g++ is absent.  A kernel logic fault shows here before any
 time on the card is spent.
@@ -309,3 +313,49 @@ def test_step_configurations(host_lib, model, config):
     _compare(load_host(fr.plan, out), fr, _sine(amp, n),
              np.linspace(0.1, 2.0, L)[:, None], fr.initial_state(L),
              pairs=True)
+
+
+def _bitwise(lib, fr, u_time, lane_values, state):
+    """The host build against plain_run, bit for bit in y, state, fails,
+    floored and iters; returns the plain version's iters."""
+    u, lv, tol, gate = fr.prepare_inputs(u_time, lane_values)
+    L = lv.shape[1]
+    args = (fr.plan, u, lv, tol, gate, state, fr._coef_tables(L),
+            fr._group(L))
+    host = F.host_step(lib, *args)
+    plain = F.plain_run(*args)
+    for name, h, p in zip(("y", "state", "fails", "iters", "floored"), host,
+                          plain):
+        if name == "state":
+            for k in p:
+                assert torch.equal(h[k], p[k]), k
+        else:
+            assert torch.equal(h, p), name
+    return plain[3]
+
+
+@pytest.mark.parametrize("case", ["fast_step", "polish_only"])
+def test_step_lane_groups_bitwise(host_lib, case):
+    """A build that couples lane groups (VERIFY_GROUP: each lane of a
+    group on a thread of its own, meeting the others at every keep test)
+    on the clipper, two groups of 1024 lanes x 48 samples, the first
+    group's input levels 0.01 to 3.0 (keep tests fail there), the second's
+    0.01 to 0.05 (they never do): bit for bit as the plain version, and
+    the redo reaches the passing lanes of the first group only (their
+    evaluations against the merge build's)."""
+    _, out = host_lib
+    kw = dict(PROD, fast_verify="group", group_lanes=1024)
+    if case == "polish_only":
+        kw.update(fast_iters=0, polish_only=True)
+    rng = np.random.default_rng(5)
+    lv = np.concatenate([rng.uniform(0.01, 3.0, 1024),
+                         rng.uniform(0.01, 0.05, 1024)])[:, None]
+    its = {}
+    for mode in ("group", "merge"):
+        fr = FusedRunner(M.diodeclipper_model(), lane_scale_idx=(0,),
+                         **dict(kw, fast_verify=mode), device="cpu")
+        assert fr.plan.verify_group == (mode == "group")
+        its[mode] = _bitwise(load_host(fr.plan, out), fr, _sine(1.5, 48), lv,
+                             fr.initial_state(2048))
+    moved = (its["group"] != its["merge"]).any(0)
+    assert moved[:1024].any() and not moved[1024:].any()

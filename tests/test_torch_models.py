@@ -118,7 +118,7 @@ def check_prepared_equal(jr, tr, L=128):
     jh, jl = jr._coef_tables(L // 128)
     th, tl = tr._coef_tables(L)
     assert tuple(th.shape) == (tr.nvar, L) == tuple(tl.shape)
-    fh, fl = coef_from_jax(jh, jl)
+    fh, fl = coef_from_jax(jh, jl, device="cpu")
     np.testing.assert_array_equal(fh.numpy(), th.numpy())
     np.testing.assert_array_equal(fl.numpy(), tl.numpy())
     bh, bl = coef_to_jax(th, tl)

@@ -89,21 +89,27 @@ def test_prepared_arrays_equal(case):
 
 
 def test_unported_configurations_raise():
-    """Two configurations stay unported: ``fast_verify="group"`` with a
-    fast path (the JAX kernel's redo couples a lane group) and ``mesh``,
-    also as the power-up sibling's overrides.  ``"group"`` without a fast
-    path is inert and runs."""
+    """One configuration stays unported: ``mesh``.  Lane groups
+    (``fast_verify="group"`` with a fast path, whose redo couples a lane
+    group) build, also as the power-up sibling's overrides, with the build
+    named for it; ``"group"`` without a fast path is inert."""
     m = TM.diodeclipper_model()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FusedRunner(m, mesh=object(), device="cpu")
     for kw in (dict(fast_iters=1), dict(polish_only=True),
-               dict(fast_iters=2, fast_verify="group"), dict(mesh=object()),
-               dict(**PROD, powerup=dict(fast_verify="group")),
+               dict(fast_iters=2, fast_verify="group", group_lanes=1024)):
+        fr = FusedRunner(m, **kw, device="cpu")
+        assert fr.plan.verify_group
+        assert fr.plan.kernel_name == "fused_sweep_group"
+    for kw in (dict(**PROD, powerup=dict(fast_verify="group")),
                dict(powerup=dict(fast_iters=1)),
                dict(powerup=dict(polish_only=True))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            FusedRunner(m, **kw, device="cpu")
+        pr = FusedRunner(m, **kw, device="cpu")._powerup_runner()
+        assert pr.plan.kernel_name == "fused_sweep_powerup_group"
     for kw in (dict(fast_verify="group"), dict(powerup="safe"),
                dict(fast_iters=0, polish_only=False, fast_verify="group")):
-        FusedRunner(m, **kw, device="cpu")
+        fr = FusedRunner(m, **kw, device="cpu")
+        assert not fr.plan.verify_group
     with pytest.raises(ValueError, match="unknown powerup override"):
         FusedRunner(m, powerup=dict(fast_iters=0, grid=4), device="cpu")
     with pytest.raises(ValueError, match="fast_verify must be"):
@@ -121,6 +127,20 @@ def test_default_device_is_the_card():
     with pytest.raises(RuntimeError, match="no CUDA card"):
         FusedRunner([m, copy.deepcopy(m)])
     assert FusedRunner(m, device="cpu").device.type == "cpu"
+
+
+def test_converter_defaults_to_the_card():
+    """The converters of a JAX run's state and tables take the card unless
+    the caller asks for the CPU, as every entry point does."""
+    import inspect
+    from acme_tpu_torch import convert
+    for fn in (convert.state_from_jax, convert.coef_from_jax):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    st = convert.state_from_jax(
+        {k: np.zeros((1, 1, 128), np.float32) for k in convert.STATE_KEYS},
+        device="cpu")
+    assert all(v.device.type == "cpu" and v.shape == (1, 128)
+               for v in st.values())
 
 
 def test_stack_limit_constants_agree():
