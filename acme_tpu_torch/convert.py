@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.fused import STATE_KEYS
+from .ops.fused import _ZERO_FILLED, STATE_KEYS
 
 __all__ = ["state_from_jax", "state_to_jax", "coef_from_jax", "coef_to_jax",
            "load_steady_seed"]
@@ -35,14 +35,19 @@ def _to_blocks(t, lane_block):
 
 def state_from_jax(state, device="cuda"):
     """(n, S, 128) arrays (numpy or jax) -> (n, L) float32 tensors on
-    ``device`` (the card unless the caller asks for the CPU)."""
-    return {k: _from_blocks(state[k], device) for k in STATE_KEYS}
+    ``device`` (the card unless the caller asks for the CPU).  ``zlo`` and
+    ``pmode`` may be missing, as the JAX runner takes them: the port's
+    runner then fills them with zeros too (their rows are the model's)."""
+    return {k: _from_blocks(state[k], device) for k in STATE_KEYS
+            if k in state or k not in _ZERO_FILLED}
 
 
 def state_to_jax(state, lane_block: int = 128):
     """(n, L) tensors -> (n, S, 128) float32 numpy arrays (L a multiple of
-    128), ready for ``jnp.asarray``."""
-    return {k: _to_blocks(state[k], lane_block) for k in STATE_KEYS}
+    128), ready for ``jnp.asarray``; a missing ``zlo`` or ``pmode`` stays
+    missing."""
+    return {k: _to_blocks(state[k], lane_block) for k in STATE_KEYS
+            if k in state or k not in _ZERO_FILLED}
 
 
 def coef_from_jax(hi, lo, device="cuda"):

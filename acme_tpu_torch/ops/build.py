@@ -103,7 +103,11 @@ def _bind(path, cuda):
         lib.acme_fused_launch.restype = ctypes.c_int
         lib.acme_cuda_error.argtypes = [ctypes.c_int]
         lib.acme_cuda_error.restype = ctypes.c_char_p
-    lib.acme_fused_host.argtypes = common
+        lib.acme_resident_lanes.argtypes = [ctypes.c_int, ctypes.c_int,
+                                            ctypes.POINTER(ctypes.c_int)]
+        lib.acme_resident_lanes.restype = ctypes.c_int
+    # ... and the lanes of a batch (0: all)
+    lib.acme_fused_host.argtypes = common + [ctypes.c_int]
     lib.acme_fused_host.restype = ctypes.c_int
     lib.acme_df_op_host.argtypes = [ctypes.c_int, ctypes.c_int] + [_PTR] * 6
     lib.acme_df_op_host.restype = ctypes.c_int

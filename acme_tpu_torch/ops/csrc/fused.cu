@@ -34,9 +34,11 @@
 //    than a thread-block cluster holds) meet at a barrier in device memory
 //    at every keep test (step.cuh group_all), one arrival per warp.  A
 //    spinning barrier needs every block of the group resident, so these
-//    builds launch cooperatively, which fails rather than run a grid the
-//    card cannot hold at once; the barrier words are (G, 4) ints that the
-//    wrapper zeroes before each launch.
+//    builds launch cooperatively, in batches of as many whole groups as the
+//    card holds resident at once (the JAX grid takes its groups one after
+//    another too), each batch at its own lane offset on the same stream; a
+//    single group the card cannot hold fails rather than run.  The barrier
+//    words are (G, 4) ints that the wrapper zeroes before each launch.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // --fmad=false -shared -Xcompiler -fPIC -include <model header> fused.cu
@@ -70,6 +72,9 @@ struct Args {
   float *xo, *xloo, *zo, *zloo, *zwo, *wpo, *dzdpo, *pmodeo;
   int *fails, *iters, *floored;
   int T, L;
+  // the first lane of this launch (a batch of whole lane groups): lanes
+  // are indexed from it, the arrays keep their stride L
+  int lane0;
   // a VERIFY_GROUP build's lane groups: Lg lanes each, and on the card
   // each group's four barrier words at gwords[4 g]
   int* gwords;
@@ -145,10 +150,23 @@ constexpr int BLOCK = 32;
 constexpr size_t STACK_BYTES = 16384;
 
 __global__ void __launch_bounds__(BLOCK) acme_fused_kernel(Args a) {
-  int l = blockIdx.x * blockDim.x + threadIdx.x;
+  int l = a.lane0 + blockIdx.x * blockDim.x + threadIdx.x;
   if (l < a.L) run_lane(a, l);
 }
 #endif
+
+// Run `launch(a, n)` over lanes [0, L) in batches of `batch` lanes (whole
+// lane groups in a VERIFY_GROUP build), `a.lane0` set to each batch's
+// first lane; stops at the first nonzero return and returns it.
+template <class F>
+int for_batches(Args a, int batch, F launch) {
+  for (int l0 = 0; l0 < a.L; l0 += batch) {
+    a.lane0 = l0;
+    const int e = launch(a, a.L - l0 < batch ? a.L - l0 : batch);
+    if (e != 0) return e;
+  }
+  return 0;
+}
 
 Args make_args(const float* u, const float* lanes, const float* tol,
                const float* gate, const float* ch, const float* cl,
@@ -167,7 +185,7 @@ Args make_args(const float* u, const float* lanes, const float* tol,
   a.xo = xo, a.xloo = xloo, a.zo = zo, a.zloo = zloo, a.zwo = zwo;
   a.wpo = wpo, a.dzdpo = dzdpo, a.pmodeo = pmodeo;
   a.fails = fails, a.iters = iters, a.floored = floored;
-  a.T = T, a.L = L;
+  a.T = T, a.L = L, a.lane0 = 0;
   a.gwords = gwords, a.Lg = Lg;
   return a;
 }
@@ -226,31 +244,63 @@ void solve_batch(int count, int use_df, int refine, int pivot,
 extern "C" {
 
 #ifdef __CUDACC__
+// The lanes of whole lane groups of Lg lanes that card `device` holds
+// resident at once for this build (0: not one group), into *lanes; returns
+// a CUDA error code.  A cooperative launch needs every block of its grid
+// resident, by the same occupancy count.
+int acme_resident_lanes(int device, int Lg, int* lanes) {
+  int sms = 0, per_sm = 0;
+  cudaError_t e = cudaDeviceGetAttribute(
+      &sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, acme_fused_kernel, BLOCK, 0);
+  if (e != cudaSuccess) return (int)e;
+  *lanes = Lg > 0 ? per_sm * sms / ((Lg + BLOCK - 1) / BLOCK) * Lg : 0;
+  return 0;
+}
+
 // Launch on `stream` of card `device` (the tensors' card); returns a CUDA
-// error code (0 on success).
+// error code (0 on success).  A VERIFY_GROUP build queues cooperative
+// launches of as many whole groups as the card holds resident, one after
+// another on the stream; cudaErrorCooperativeLaunchTooLarge only when not
+// one group fits.
 int acme_fused_launch(ACME_ARGS, int device, void* stream) {
   constexpr int MAX_DEVICES = 64;
+  static std::mutex setup;
   static bool stack_set[MAX_DEVICES] = {};
   if (device < 0 || device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  // the stack limit is a property of each card's context
-  if (!stack_set[device]) {
-    e = cudaDeviceSetLimit(cudaLimitStackSize, STACK_BYTES);
-    if (e != cudaSuccess) return (int)e;
-    stack_set[device] = true;
+  {
+    // the stack limit is a property of each card's context, shared by
+    // every library loaded in the process: raise it once, never lower it
+    std::lock_guard<std::mutex> lock(setup);
+    if (!stack_set[device]) {
+      size_t cur = 0;
+      e = cudaDeviceGetLimit(&cur, cudaLimitStackSize);
+      if (e == cudaSuccess && cur < STACK_BYTES)
+        e = cudaDeviceSetLimit(cudaLimitStackSize, STACK_BYTES);
+      if (e != cudaSuccess) return (int)e;
+      stack_set[device] = true;
+    }
   }
   if (L <= 0) return 0;
   Args a = make_args(ACME_PASS);
-  const dim3 grid((L + BLOCK - 1) / BLOCK), block(BLOCK);
+  const cudaStream_t s = (cudaStream_t)stream;
   if constexpr (VERIFY_GROUP) {
-    // every block of a group resident at once, or no launch at all
-    void* params[] = {&a};
-    return (int)cudaLaunchCooperativeKernel((const void*)acme_fused_kernel,
-                                            grid, block, params, 0,
-                                            (cudaStream_t)stream);
+    int batch = 0;
+    e = (cudaError_t)acme_resident_lanes(device, Lg, &batch);
+    if (e != cudaSuccess) return (int)e;
+    if (batch == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
+    return for_batches(a, batch, [s](Args b, int n) {
+      void* params[] = {&b};
+      return (int)cudaLaunchCooperativeKernel(
+          (const void*)acme_fused_kernel, dim3((n + BLOCK - 1) / BLOCK),
+          dim3(BLOCK), params, 0, s);
+    });
   }
-  acme_fused_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(a);
+  acme_fused_kernel<<<(L + BLOCK - 1) / BLOCK, BLOCK, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -260,39 +310,45 @@ const char* acme_cuda_error(int e) {
 }
 #endif
 
-// The same step on the host (tests without a card): lane by lane, or in a
-// VERIFY_GROUP build each lane of a group on a thread of its own, one group
-// after another; returns 1 if a group's threads could not all be started
-// (those that were are released from the barrier and joined first), 2 if
-// a group's barrier was stuck.
-int acme_fused_host(ACME_ARGS) {
+// The same step on the host (tests without a card), in batches of `batch`
+// lanes (0: all; a VERIFY_GROUP build's batches are whole groups), each at
+// its lane offset as on the card: lane by lane, or in a VERIFY_GROUP build
+// each lane of a group on a thread of its own, one group after another;
+// returns 1 if a group's threads could not all be started (those that were
+// are released from the barrier and joined first), 2 if a group's barrier
+// was stuck, 3 for a batch that is not whole groups.
+int acme_fused_host(ACME_ARGS, int batch) {
   Args a = make_args(ACME_PASS);
-  if constexpr (VERIFY_GROUP) {
-    for (int g0 = 0; g0 < L; g0 += Lg) {
-      acme::HostGroup group;
-      group.n = Lg;
-      std::vector<std::thread> lanes_of_group;
-      bool started = true;
-      try {
-        lanes_of_group.reserve(Lg);
-        for (int l = g0; l < g0 + Lg; ++l)
-          lanes_of_group.emplace_back([&a, &group, l] {
-            run_lane(a, l, &group);
-          });
-      } catch (const std::exception&) {
-        started = false;
-        std::lock_guard<std::mutex> lock(group.m);
-        group.abort = true;
-        group.cv.notify_all();
+  if (batch <= 0) batch = L;
+  if (VERIFY_GROUP && batch % Lg) return 3;
+  return for_batches(a, batch, [](const Args& b, int n) {
+    if constexpr (VERIFY_GROUP) {
+      for (int g0 = b.lane0; g0 < b.lane0 + n; g0 += b.Lg) {
+        acme::HostGroup group;
+        group.n = b.Lg;
+        std::vector<std::thread> lanes_of_group;
+        bool started = true;
+        try {
+          lanes_of_group.reserve(b.Lg);
+          for (int l = g0; l < g0 + b.Lg; ++l)
+            lanes_of_group.emplace_back([&b, &group, l] {
+              run_lane(b, l, &group);
+            });
+        } catch (const std::exception&) {
+          started = false;
+          std::lock_guard<std::mutex> lock(group.m);
+          group.abort = true;
+          group.cv.notify_all();
+        }
+        for (auto& t : lanes_of_group) t.join();
+        if (!started) return 1;
+        if (group.stuck) return 2;
       }
-      for (auto& t : lanes_of_group) t.join();
-      if (!started) return 1;
-      if (group.stuck) return 2;
+      return 0;
     }
+    for (int l = b.lane0; l < b.lane0 + n; ++l) run_lane(b, l);
     return 0;
-  }
-  for (int l = 0; l < L; ++l) run_lane(a, l);
-  return 0;
+  });
 }
 
 // Elementwise df arithmetic, for testing df.cuh against its plain version:

@@ -60,7 +60,7 @@ from .. import xp as txp
 from .linsolve_tiny import solve_rows
 
 __all__ = ["FusedRunner", "FusedInfo", "fused_step", "plain_run",
-           "host_step", "LAUNCHES", "LAUNCH_EVENTS"]
+           "host_step", "resident_lanes", "LAUNCHES", "LAUNCH_EVENTS"]
 
 # launches of the CUDA kernel made by fused_step (and nowhere else), by
 # library (the file name of the build, one per model and configuration;
@@ -70,8 +70,6 @@ LAUNCHES = collections.Counter()
 # CUDA events, recorded on the launch stream just around the kernel
 LAUNCH_EVENTS = None
 
-# the configuration the port does not run yet, and where it is queued
-_MESH = "ROADMAP Queue 1 item 2: lanes split across GPUs"
 # the lanes of one (sublane) block of the JAX kernel's grid; lane groups
 # are whole blocks
 LANE = 128
@@ -87,6 +85,29 @@ _POWERUP_INTS = {"newton_iters": "K", "fast_iters": "fast_iters",
                  "plateau_strikes": "plateau_strikes",
                  "verdict_refine": "verdict_refine"}
 _POWERUP_BOOLS = ("compensated", "pivot", "df_state", "polish_only")
+
+
+def _device(d):
+    """``torch.device(d)``, a CUDA device without an index as the current
+    card's."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None and torch.cuda.is_available():
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def _mesh_devices(mesh):
+    """``mesh`` as a tuple of torch devices of one type (ValueError
+    otherwise)."""
+    try:
+        devs = tuple(_device(d) for d in mesh)
+    except (TypeError, RuntimeError) as e:
+        raise ValueError(f"mesh must be a sequence of torch devices: {e}")
+    if not devs or len({d.type for d in devs}) != 1 \
+            or devs[0].type not in ("cuda", "cpu"):
+        raise ValueError("mesh must be a non-empty sequence of CUDA "
+                         f"devices or of CPU devices, got {devs}")
+    return devs
 
 
 def _cast_df_polish(v, compensated):
@@ -252,13 +273,25 @@ class FusedRunner:
     cannot be split in blocks of 8 x 128); ``group_size(L)`` gives the
     result.  ``group_lanes`` is read by that configuration only.
 
-    Not ported: ``mesh`` (ROADMAP Queue 1 item 2); ``mesh_axis`` names an
-    axis of ``mesh``, so it is accepted for the JAX package's signature
-    and read nowhere until then.
+    Lanes split across devices: ``mesh`` is a sequence of torch devices of
+    one type (``acme_tpu_torch.parallel.lane_mesh()``: the visible cards;
+    an entry may repeat, as ``(cuda:0, cuda:0)`` or the CPU tests'
+    ``(cpu,) * 8``).  ``run`` then takes L a multiple of 128 whose
+    128-lane blocks divide by the mesh size (ValueError, "not divisible",
+    otherwise) and gives entry d the contiguous lanes
+    ``[d L/n, (d+1) L/n)``: their inputs, tolerances, coefficient tables
+    and state, sliced from the whole run's, and one launch of the kernel
+    on a stream of its own (CPU entries: the plain version, one after
+    another); outputs and state are gathered on the runner's device, the
+    mesh's first entry (``device`` may only name that one), as the JAX
+    runner's ``shard_map`` does with no collectives.  Each entry
+    partitions its own lanes into lane groups (``group_size``).
+    ``mesh_axis`` is accepted for the JAX package's signature and read
+    nowhere: a sequence has one axis.
     """
 
     def __init__(self, model, lane_input_idx: Sequence[int] = (), *,
-                 device="cuda", lane_scale_idx: Sequence[int] = (),
+                 device=None, lane_scale_idx: Sequence[int] = (),
                  newton_iters: int = 192, tol: float = 1e-9,
                  step_clip: float = 1.0, center: bool = True,
                  center_u=None, extrapolate: bool = True, refine: int = 1,
@@ -288,18 +321,26 @@ class FusedRunner:
                     "per-lane models must share dimensions/decomposition")
         self.models = models
         model = m0
-        if mesh is not None:
-            raise NotImplementedError(
-                "FusedRunner(mesh=...) is not ported to acme_tpu_torch yet "
-                f"({_MESH})")
         _check_choice("fast_verify", fast_verify, ("group", "merge", "always"))
         _check_choice("fast_keep", fast_keep, ("gate", "tol"))
         _check_choice("verdict_jac", verdict_jac, ("df", "plain"))
+        self.mesh = None if mesh is None else _mesh_devices(mesh)
+        if device is None:
+            device = "cuda" if mesh is None else self.mesh[0]
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"FusedRunner(device={str(device)!r}): no CUDA card found; "
                 'pass device="cpu" for the plain version')
+        if self.mesh is not None:
+            if _device(self.device) != self.mesh[0]:
+                raise ValueError(
+                    f"FusedRunner(device={str(device)!r}) is not the mesh's "
+                    f"first entry ({self.mesh[0]}), where the state and the "
+                    "outputs are gathered")
+            self.device = self.mesh[0]
+        # one stream per mesh entry, made at the first run on CUDA
+        self._mesh_streams = None
         self.model = model
         self.K = int(newton_iters)
         # the step configuration, cast as the JAX package casts it
@@ -620,25 +661,29 @@ class FusedRunner:
         return torch.as_tensor(np.ascontiguousarray(arr, np.float32),
                                device=self.device)
 
-    def initial_state(self, lanes: int):
+    def initial_state(self, lanes: int, at_steady: bool = False):
         """Initial carry, (n, L) float32 tensors on the runner's device
         (fused.py:2534-2598): x = 0, z = the initial operating point, and a
-        consistent extrapolation origin (wp, zw); with per-lane models,
-        each lane starts at its own model's."""
+        consistent extrapolation origin (wp, zw); ``at_steady`` starts at
+        the centering steady state instead (x, z and wp zero in centered
+        coordinates), skipping the power-up transient.  With per-lane
+        models, each lane starts at its own model's."""
         midx = self._lane_model_idx(lanes)
         rows = {k: [] for k in ("x", "xlo", "z", "wp", "dz")}
         for m, p in zip(self.models, self._prep):
-            x0v = np.zeros(1) if self.nx == 0 else -p["x_ss"] / self.Tx
+            x0v = (np.zeros(max(self.nx, 1)) if at_steady or self.nx == 0
+                   else -p["x_ss"] / self.Tx)
             xlo_v = x0v - x0v.astype(np.float32).astype(np.float64)
             if self.nn_total:
-                z0 = (np.concatenate([np.asarray(z, float)
-                                      for z in m.init_zs]) - p["z_ss"])
+                z0 = (np.zeros(self.nn_total) if at_steady
+                      else np.concatenate([np.asarray(z, float)
+                                           for z in m.init_zs]) - p["z_ss"])
             else:
                 z0 = np.zeros(1)
             dz0 = (np.concatenate([d.reshape(-1) for d in p["dzdp0"]])
                    if self.dz_total else np.zeros(1))
             wp0 = np.zeros(max(self.np_total, 1))
-            if self.np_total:
+            if self.np_total and not at_steady:
                 u_c = -self.u_ss
                 off = 0
                 for kk in range(self.nsub):
@@ -787,10 +832,27 @@ class FusedRunner:
 
     def group_size(self, L: int) -> int:
         """The lanes of one lane group of a run over L lanes (a multiple of
-        LANE, else ValueError as the JAX runner raises, fused.py:2934)."""
+        LANE, else ValueError as the JAX runner raises, fused.py:2934).
+        With a mesh, each entry partitions its own L/n lanes
+        (``_group_S(S / n)``, fused.py:2406-2411), so 4096 lanes at
+        ``group_lanes=2048`` are two groups of 2048 unsplit and on a mesh
+        of two, four of 1024 on a mesh of four."""
+        return LANE * self._group_S(self._mesh_split(L) // LANE)
+
+    def _mesh_split(self, L: int) -> int:
+        """The lanes of each mesh entry of a run over L lanes (L without a
+        mesh, where only a build that couples lane groups needs L a
+        multiple of LANE): ValueError unless L is whole blocks of LANE
+        lanes that divide by the mesh size (fused.py:2406-2409)."""
         if L % LANE:
-            raise ValueError(f"lanes ({L}) must be a multiple of {LANE}")
-        return LANE * self._group_S(L // LANE)
+            raise ValueError(f"lanes ({L}) must be a multiple of {LANE}"
+                             + ("" if self.mesh is None else
+                                ": not divisible into lane blocks"))
+        n = 1 if self.mesh is None else len(self.mesh)
+        if (L // LANE) % n:
+            raise ValueError(f"lane blocks ({L // LANE}) not divisible by "
+                             f"the mesh size ({n})")
+        return L // n
 
     def _group(self, L):
         """The group size to hand the step: ``group_size(L)`` when the
@@ -912,8 +974,12 @@ class FusedRunner:
         own steady state; with ``powerup="safe"`` or a dict, the first
         ``powerup_samples`` run through the power-up sibling, whose state
         this runner takes over, fused.py:2898-2917).  A build that couples
-        lane groups takes L a multiple of 128 (ValueError otherwise, before
-        any step runs)."""
+        lane groups, or a mesh, takes L a multiple of 128 (with a mesh, its
+        blocks divisible by the mesh size); ValueError otherwise, before any
+        step runs.  A state without ``zlo`` or ``pmode`` gets zeros there,
+        as the JAX runner fills them (fused.py:2967-2970)."""
+        if self.mesh is not None:
+            self._mesh_split(self._lanes(lane_values))
         if state is None and self.powerup_steady:
             state = self.steady_initial_state(lane_values)
         if state is None and self._pw_overrides is not None:
@@ -940,17 +1006,102 @@ class FusedRunner:
         L = lv.shape[1]
         if state is None:
             state = self.initial_state(L)
-        y, state, fails, iters, floored = fused_step(
-            self.plan, u, lv, tol_l, gate_l, state, self._coef_tables(L),
-            self._group(L))
+        state = _complete_state(self.plan, state, lv)
+        args = (u, lv, tol_l, gate_l, state, self._coef_tables(L),
+                self._group(L))
+        if self.mesh is None:
+            out = fused_step(self.plan, *args)
+        else:
+            out = self._mesh_step(fused_step, *args)
+        y, state, fails, iters, floored = out
         y = y.permute(2, 1, 0)[:, :self.ny, :]
         info = FusedInfo(fails=fails, iters=iters.T, floored=floored)
         if check:
             self._check_outputs(y, info)
         return y, state, info
 
+    def _streams(self):
+        """One CUDA stream per mesh entry, on the entry's card (a card
+        named twice gets two), made once."""
+        if self._mesh_streams is None:
+            self._mesh_streams = [torch.cuda.Stream(device=d)
+                                  for d in self.mesh]
+        return self._mesh_streams
+
+    def _mesh_step(self, step, u, lv, tol, gate, state, coef, group):
+        """``step`` (``fused_step``, or ``plain_run`` to hold the kernel
+        against) once per mesh entry over the entry's contiguous lanes,
+        sliced from the whole run's inputs, state and tables; the outputs
+        gathered on the runner's device in lane order (fused.py:2517-2528:
+        the kernel shard_map-ed over the lane axis, no collectives).  CUDA
+        entries each launch on a stream of their own, made to wait for the
+        runner's current stream, so that the launches overlap; the runner's
+        stream waits for every entry before the gather.  CPU entries run
+        one after another."""
+        n = len(self.mesh)
+        Ld = lv.shape[1] // n
+        lane_args = [lv, tol, gate, *coef] + [state[k] for k in STATE_KEYS]
+        cuda = self.device.type == "cuda"
+        main = torch.cuda.current_stream(self.device) if cuda else None
+        parts = []
+        for d, dev in enumerate(self.mesh):
+            sl = slice(d * Ld, (d + 1) * Ld)
+            with contextlib.ExitStack() as ctx:
+                if cuda:
+                    s = self._streams()[d]
+                    ctx.enter_context(torch.cuda.device(dev))
+                    ctx.enter_context(torch.cuda.stream(s))
+                    s.wait_stream(main)
+                    for t in [u] + lane_args:
+                        # read on s: not freed for reuse before s is done
+                        t.record_stream(s)
+                # copies made here belong to s (or live on the CPU)
+                uu = u.to(dev)
+                lv_d, tol_d, gate_d, ch, cl, *st = [
+                    t[:, sl].to(dev).contiguous() for t in lane_args]
+                out = step(self.plan, uu, lv_d, tol_d, gate_d,
+                           dict(zip(STATE_KEYS, st)), (ch, cl), group)
+                if cuda:
+                    done = torch.cuda.Event()
+                    done.record(s)
+                    parts.append((out, done))
+                else:
+                    parts.append((out, None))
+        outs = []
+        for out, done in parts:
+            if done is not None:
+                main.wait_event(done)
+                y, st, fails, iters, floored = out
+                for t in [y, fails, iters, floored, *st.values()]:
+                    # read by the gather on the runner's stream
+                    t.record_stream(main)
+            outs.append(out)
+        dev = self.device
+        cat = lambda ts, dim: torch.cat([t.to(dev) for t in ts], dim=dim)
+        ys, sts, fails, iters, floored = zip(*outs)
+        return (cat(ys, 2), {k: cat([st[k] for st in sts], 1)
+                             for k in STATE_KEYS},
+                cat(fails, 0), cat(iters, 1), cat(floored, 0))
+
 
 STATE_KEYS = ("x", "xlo", "z", "zlo", "zw", "wp", "dzdp", "pmode")
+# the state keys a caller may leave out, filled with zeros as the JAX
+# runner fills them (fused.py:2967-2970)
+_ZERO_FILLED = ("zlo", "pmode")
+
+
+def _complete_state(plan, state, like):
+    """``state`` with each key of ``_ZERO_FILLED`` it lacks as zeros of
+    its shape (its rows by ``plan``, ``like.shape[1]`` lanes, on
+    ``like``'s device)."""
+    missing = [k for k in _ZERO_FILLED if k not in state]
+    if not missing:
+        return state
+    dims = _state_dims(plan)
+    return {**state, **{k: torch.zeros((dims[k], like.shape[1]),
+                                       dtype=torch.float32,
+                                       device=like.device)
+                        for k in missing}}
 
 
 # -- the prepared step (shared by the plain version and emit.py) --------------
@@ -1086,7 +1237,8 @@ def fused_step(plan, u, lv, tol, gate, state, coef=None, group=None):
     (``plan.verify_group``) needs and every other plan ignores.
     Returns (y (T, ny, L), new state, fails (L,), iters (nsub, L),
     floored (L,)).  CUDA tensors go through the kernel (or raise); the
-    plain torch version runs only for CPU tensors."""
+    plain torch version runs only for CPU tensors.  A state without
+    ``zlo`` or ``pmode`` gets zeros there."""
     dev = u.device
     if dev.type == "cuda":
         return _launch_kernel(plan, u, lv, tol, gate, state, coef, group)
@@ -1134,6 +1286,7 @@ def _library_call(lib, entry, plan, u, lv, tol, gate, state, coef, group,
     T = u.shape[0]
     dev = u.device
     dims = _state_dims(plan)
+    state = _complete_state(plan, state, lv)
     ch, cl = _coef_pair(plan, coef, lv)
     args = [u, lv, tol, gate, ch, cl] + [state[k] for k in STATE_KEYS]
     shapes = [(T, max(len(plan.time_idx), 1)),
@@ -1169,17 +1322,42 @@ def _library_call(lib, entry, plan, u, lv, tol, gate, state, coef, group,
                              ctypes.c_int(Lg), *extra)
     if rc != 0:
         # a CUDA build names its error; a host build fails only in a
-        # lane group's threads
-        what = (lib.acme_cuda_error(rc).decode()
-                if entry == "acme_fused_launch" else
-                _HOST_ERRORS.get(rc, "unknown"))
+        # lane group's threads or on a batch of partial groups
+        if entry == "acme_fused_launch":
+            what = lib.acme_cuda_error(rc).decode()
+            if what == "cudaErrorCooperativeLaunchTooLarge":
+                what += (f": one lane group of {Lg} lanes does not fit "
+                         "resident on the card, which holds "
+                         f"{resident_lanes(plan, dev, Lg)} lanes of whole "
+                         "groups of this build")
+        else:
+            what = _HOST_ERRORS.get(rc, "unknown")
         raise RuntimeError(f"fused kernel failed: error {rc} ({what})")
     return y, out, fails, iters, floored
 
 
 # the host build's error codes (csrc/fused.cu acme_fused_host)
 _HOST_ERRORS = {1: "a lane group's threads did not all start",
-                2: "a lane group's barrier was stuck"}
+                2: "a lane group's barrier was stuck",
+                3: "a batch that is not whole lane groups"}
+
+
+def resident_lanes(plan, device, group):
+    """The lanes of whole lane groups of ``group`` lanes that CUDA
+    ``device`` holds resident at once for ``plan``'s build: the batch its
+    group launches take (``csrc/fused.cu`` ``acme_resident_lanes``; 0 when
+    not one group fits)."""
+    from .build import load_kernel
+    lib = load_kernel(plan)
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    lanes = ctypes.c_int(0)
+    rc = lib.acme_resident_lanes(index, int(group), ctypes.byref(lanes))
+    if rc != 0:
+        raise RuntimeError(f"acme_resident_lanes failed: error {rc} "
+                           f"({lib.acme_cuda_error(rc).decode()})")
+    return lanes.value
 
 
 def _launch_kernel(plan, u, lv, tol, gate, state, coef=None, group=None):
@@ -1202,13 +1380,16 @@ def _launch_kernel(plan, u, lv, tol, gate, state, coef=None, group=None):
     return result
 
 
-def host_step(lib, plan, u, lv, tol, gate, state, coef=None, group=None):
+def host_step(lib, plan, u, lv, tol, gate, state, coef=None, group=None,
+              batch=0):
     """The kernel's own step compiled for the host (``build.load_host``),
     lane by lane on CPU tensors (a build that couples lane groups: each
-    lane of a group on its own thread, one group after another): the CPU
-    tests' view of ``csrc``."""
+    lane of a group on its own thread, one group after another), in
+    batches of ``batch`` lanes at their lane offsets as the card launches
+    them (0: one batch; a group build's batches are whole groups): the
+    CPU tests' view of ``csrc``."""
     return _library_call(lib, "acme_fused_host", plan, u, lv, tol, gate,
-                         state, coef, group)
+                         state, coef, group, ctypes.c_int(int(batch)))
 
 
 def _state_dims(plan):
@@ -1853,6 +2034,7 @@ def plain_run(plan, u, lv, tol, gate, state, coef=None, group=None):
     Lg = _group_lanes(plan, L, group)
     nsub = plan.nsub
     env = _Env(plan.nvar, *_coef_pair(plan, coef, lv))
+    state = _complete_state(plan, state, lv)
     st = {k: state[k].clone() for k in STATE_KEYS}
     x = [st["x"][i] for i in range(plan.nx)]
     xlo = [st["xlo"][i] for i in range(plan.nx)]

@@ -85,6 +85,20 @@ Phases, each printed with its seconds:
      from the same seeds: its cost, its dB against the references and
      against the group run's window 1, and the gate that the branch ran
      (window 1's evaluations differ from the twin's on some lane);
+  5h. the mesh path: the main path's runner and the groups path's over a
+     mesh that names the card twice (``FusedRunner(mesh=(cuda:0,
+     cuda:0))``: two entries of 2048 lanes, each launched on a stream of
+     its own, gathered on the card; the same builds): the main path's
+     split against the plain version at 4096 x 16 from the seeds (kernel
+     ms per entry), its first two windows from the seeds and the groups
+     path's first (each entry one group of 2048, the unsplit partition),
+     each bit for bit as phase 5's and phase 5g's in y, state, fails,
+     iters and floored and timed beside them (kernel per entry, the span
+     of the entries' launches and how far they overlapped); then the
+     lanes the card holds resident for the groups path's build, and a
+     group grid of at least twice as many lanes (the main path's lanes
+     and seeds tiled, 16 samples) in one call, which launches batches of
+     whole groups, bit for bit as its groups run one at a time;
   6. the kernel launch counts of each path, by build (library).
 The "kernels" line has one entry per build: the main path's, the
 production and power-up builds of the level, presets and full paths, each
@@ -164,6 +178,12 @@ TIER_CHECK_SAMPLES = 16
 # path, where the main path's compensated verdict reads -98 dB
 GROUPS_WINDOWS = 3
 GROUPS_PARITY_MEDIAN_DB = -65.0
+# the mesh path (phase 5h): the main path's first windows and the groups
+# path's first over a mesh that names the card twice, each held bit for
+# bit to its unsplit run; the group grid above the card's resident
+# capacity over this many samples
+MESH_WINDOWS = 2
+RESIDENT_CHECK_SAMPLES = 16
 # phase 4's timed launches of a kernel, queued behind its warm-up launch
 CHECK_LAUNCHES = 3
 # nvcc processes at a time
@@ -228,11 +248,21 @@ def compare_case(name, fr, u_time, lane_values, state, torch, F, op_counts,
     """Kernel (fused_step on CUDA tensors) against plain_run on the same
     CUDA tensors, in lane groups of ``group`` lanes where the build couples
     them; ``exact``: fail unless the two agree bit for bit in y, state,
-    fails, floored and iters.  Returns (a dict of the numbers it printed
-    and the kernel's iters, the kernel's state)."""
+    fails, floored and iters.  A runner with a mesh runs both through its
+    split (each entry's launch on its own stream; the plain version on
+    each entry's lanes), and its kernel ms are per entry.  Returns (a
+    dict of the numbers it printed and the kernel's iters, the kernel's
+    state)."""
     u, lv, tol, gate = fr.prepare_inputs(u_time, lane_values)
     coef = fr._coef_tables(lv.shape[1])
     state = {k: v.contiguous() for k, v in state.items()}
+    args = (u, lv, tol, gate, state, coef, group)
+
+    def step(fn):
+        if fr.mesh is None:
+            return fn(fr.plan, *args)
+        return fr._mesh_step(fn, *args)
+    entries = 1 if fr.mesh is None else len(fr.mesh)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     # a warm-up launch (the first launch of a library also loads its
     # module), then the timed launches queued behind it, each timed alone
@@ -240,16 +270,14 @@ def compare_case(name, fr, u_time, lane_values, state, torch, F, op_counts,
     # wrapper's host work stays out of their time
     F.LAUNCH_EVENTS = []
     for _ in range(1 + CHECK_LAUNCHES):
-        yk, stk, fk, ik, flk = F.fused_step(fr.plan, u, lv, tol, gate,
-                                            state, coef, group)
+        yk, stk, fk, ik, flk = step(F.fused_step)
     torch.cuda.synchronize()
     ms_k = float(np.median([a.elapsed_time(b)
-                            for a, b in F.LAUNCH_EVENTS[1:]]))
+                            for a, b in F.LAUNCH_EVENTS[entries:]]))
     F.LAUNCH_EVENTS = None
     ev[0].record()
     with torch.inference_mode():
-        yp, stp, fp, ip, flp = F.plain_run(fr.plan, u, lv, tol, gate, state,
-                                           coef, group)
+        yp, stp, fp, ip, flp = step(F.plain_run)
     ev[1].record()
     torch.cuda.synchronize()
     ms_p = ev[0].elapsed_time(ev[1])
@@ -302,14 +330,16 @@ def compare_case(name, fr, u_time, lane_values, state, torch, F, op_counts,
 
 
 def drive_path(label, fr, u, lane_values, state, windows, keep, card, torch,
-               F, op_counts):
+               F, op_counts, hold=0):
     """Chain ``windows`` runs of ``fr`` through its public ``run``, each
     timed whole (CUDA events around the call) and each kernel launch
     alone (``fused.LAUNCH_EVENTS``).  The launch counts are set to 0 just
     before and read just after.  Returns (the first and the last window's
     outputs on the lanes ``keep``, the launch counts by build, each
     window's (fails, floored) summed over the lanes, and each window's
-    (ms, FusedInfo, kernel ms of each launch))."""
+    (ms, FusedInfo, kernel ms of each launch, the span from the first
+    launch's start to the last one's end in ms, and for the first
+    ``hold`` windows the whole (y, state) on the card, else None))."""
     T = u.shape[1]
     L = lane_values.shape[0]
     F.LAUNCHES.clear()
@@ -324,8 +354,12 @@ def drive_path(label, fr, u, lane_values, state, windows, keep, card, torch,
         y, state, info = fr.run(u, lane_values, state=state, check=True)
         e1.record()
         torch.cuda.synchronize()
+        launched = F.LAUNCH_EVENTS[n0:]
+        span = (max(e0.elapsed_time(b) for _, b in launched)
+                - min(e0.elapsed_time(a) for a, _ in launched))
         rows.append((e0.elapsed_time(e1), info,
-                     [a.elapsed_time(b) for a, b in F.LAUNCH_EVENTS[n0:]]))
+                     [a.elapsed_time(b) for a, b in launched], span,
+                     (y, state) if w < hold else None))
         # finite over every lane (run's check); the reference lanes kept
         if w == 0:
             y_first = y[keep, 0].cpu().numpy()
@@ -337,17 +371,29 @@ def drive_path(label, fr, u, lane_values, state, windows, keep, card, torch,
         raise SmokeFailure(f"{label}: {timed} kernel launches timed of "
                            f"{sum(launches.values())} over {windows} "
                            "windows")
-    for w, (ms, info, k_ms) in enumerate(rows):
+    for w, (ms, info, k_ms, span, _) in enumerate(rows):
         fails = info.fails.cpu().numpy()
         fl = info.floored.cpu().numpy()
         its = info.iters.cpu().numpy()
         evals = its.mean(0) / T
         b_ms, b_by = bound(fr.plan, L, T, evals, F, op_counts)
         rt = (T / FS) / (ms / 1e3)
+        if fr.mesh is None:
+            kernel = (f"kernel {' + '.join(f'{k:.1f}' for k in k_ms)} ms, "
+                      f"outside it {ms - sum(k_ms):.1f} ms = "
+                      f"{100 * (ms - sum(k_ms)) / ms:.2f} %")
+        else:
+            # the entries' launches on their streams: how far they ran at
+            # once (1: wholly, 0: one after another)
+            overlap = ((sum(k_ms) - span) / (sum(k_ms) - max(k_ms))
+                       if len(k_ms) > 1 else float("nan"))
+            kernel = ("kernel per entry "
+                      f"{' | '.join(f'{k:.1f}' for k in k_ms)} ms over a "
+                      f"span of {span:.1f} ms, overlap {overlap:.3f}; "
+                      f"outside the span {ms - span:.1f} ms = "
+                      f"{100 * (ms - span) / ms:.2f} %")
         log(f"[{label}] window {w + 1}: {L} lanes x {T} samples "
-            f"{ms:.1f} ms (kernel {' + '.join(f'{k:.1f}' for k in k_ms)} "
-            f"ms, outside it {ms - sum(k_ms):.1f} ms = "
-            f"{100 * (ms - sum(k_ms)) / ms:.2f} %) | RT-factor per lane "
+            f"{ms:.1f} ms ({kernel}) | RT-factor per lane "
             f"{rt:.3f}x | {L * T / (ms / 1e3) / 1e6:.3f} Msamples/s | "
             f"fails mean {fails.mean():.4f} max {int(fails.max())} | "
             f"floored mean {fl.mean():.4f} max {int(fl.max())} | "
@@ -355,7 +401,7 @@ def drive_path(label, fr, u, lane_values, state, windows, keep, card, torch,
             f"{b_ms:.3f} ms ({b_by}, production build's counts) | card: "
             f"{card}")
     counts = [(int(info.fails.sum()), int(info.floored.sum()))
-              for _, info, _ in rows]
+              for _, info, *_ in rows]
     return y_first, y_last, launches, counts, rows
 
 
@@ -545,11 +591,12 @@ def groups_path(fr_g, fr_m, u, lane_values, seeds, lanes, descs, keys, card,
     then one window of its merge twin from the same seeds: its cost, its
     dB against the group run's window 1 on every lane, and the gate that
     the branch ran (window 1's evaluations differ on some lane).  Returns
-    the launch counts of the group run and of the twin's."""
+    the launch counts of the group run and of the twin's, and the group
+    run's window 1 (ms, FusedInfo, kernel ms, span, (y, state))."""
     every = np.arange(lane_values.shape[0])
     y1, y_last, launches, counts, rows = drive_path(
         "5g groups path", fr_g, u, lane_values, seeds[0], GROUPS_WINDOWS,
-        every, card, torch, F, op_counts)
+        every, card, torch, F, op_counts, hold=1)
     log(f"[5g groups path] (fails, floored) by window: {counts}")
     score("5g groups path", lanes, descs, y1[lanes], y_last[lanes], keys,
           GROUPS_WINDOWS, PARITY_WORST_DB, GROUPS_PARITY_MEDIAN_DB)
@@ -570,7 +617,7 @@ def groups_path(fr_g, fr_m, u, lane_values, seeds, lanes, descs, keys, card,
     differ = int((it_g != it_m).any(dim=1).sum())
     ev_g = float(it_g.sum(1).double().mean()) / u.shape[1]
     ev_m = float(it_m.sum(1).double().mean()) / u.shape[1]
-    (ms_g, _, k_g), (ms_m, _, k_m) = rows[0], m_rows[0]
+    (ms_g, _, k_g, *_), (ms_m, _, k_m, *_) = rows[0], m_rows[0]
     log(f"[5g groups path] merge twin, window 1: (fails, floored) "
         f"{m_counts[0]}; against the float64 references worst "
         f"{max(twin):.1f} dB, median {np.median(twin):.1f} dB over "
@@ -585,7 +632,115 @@ def groups_path(fr_g, fr_m, u, lane_values, seeds, lanes, descs, keys, card,
         raise SmokeFailure("5g groups path: window 1's evaluations equal "
                            "the merge twin's on every lane: nothing on the "
                            "path exercised the lane group")
-    return launches, m_launches
+    return launches, m_launches, rows[0]
+
+
+def same_outputs(label, got, want):
+    """Fail unless two windows' (ms, FusedInfo, kernel ms, span, (y,
+    state)) rows agree bit for bit in y, state, fails, iters and
+    floored."""
+    (yg, sg), (yw, sw) = got[4], want[4]
+    bad = [] if yg.equal(yw) else ["y"]
+    bad += [k for k in sw if not sg[k].equal(sw[k])]
+    bad += [f for f, a, b in zip(got[1]._fields, got[1], want[1])
+            if not a.equal(b)]
+    if bad:
+        raise SmokeFailure(f"{label}: not bit for bit as the unsplit run "
+                           f"in {bad}")
+
+
+def mesh_path(meshed, seeds, fr_so, fr_g, main_rows, group_row, u,
+              lane_values, card, dev, torch, F, op_counts):
+    """Phase 5h: the mesh ``(cuda:0, cuda:0)``, two entries of 2048 lanes
+    each launching on its own stream.  The main path's split against the
+    plain version at phase 4's shape (kernel ms per entry), then its first
+    MESH_WINDOWS windows from the seeds and the groups path's first, each
+    bit for bit as phase 5's and phase 5g's and timed beside them; then
+    the group build over a grid of at least twice the lanes the card
+    holds resident, bit for bit as its groups run one at a time."""
+    L = lane_values.shape[0]
+    check, _ = compare_case("mesh main path (kernel ms per entry)",
+                            meshed["main"], u[:, :TIER_CHECK_SAMPLES],
+                            lane_values, seeds["main"], torch, F, op_counts)
+    out = {"check": check}
+    for name, fr, rows0, windows in (("main", fr_so, main_rows, MESH_WINDOWS),
+                                     ("groups", fr_g, [group_row], 1)):
+        label = f"5h mesh {name} path"
+        fr_m = meshed[name]
+        if fr.plan.verify_group and fr_m.group_size(L) != fr.group_size(L):
+            raise SmokeFailure(f"{label}: groups of {fr_m.group_size(L)} "
+                               f"lanes, the unsplit run's {fr.group_size(L)}")
+        _, _, launches, _, rows = drive_path(
+            label, fr_m, u, lane_values, seeds[name], windows, [0], card,
+            torch, F, op_counts, hold=windows)
+        expected = {fr.plan.cuda_name: len(fr_m.mesh) * windows}
+        log(f"[{label}] launches {launches}")
+        if launches != expected:
+            raise SmokeFailure(f"{label} launches {launches}, expected "
+                               f"{expected}")
+        for w, (row, row0) in enumerate(zip(rows, rows0)):
+            same_outputs(f"{label} window {w + 1}", row, row0)
+            ms, _, k_ms, span, _ = row
+            ms0, _, k0, span0, _ = row0
+            log(f"[{label}] window {w + 1} bit for bit as the unsplit "
+                f"run's: {ms:.1f} ms against {ms0:.1f} ms; kernel per "
+                f"entry {' | '.join(f'{k:.1f}' for k in k_ms)} ms over "
+                f"{span:.1f} against one launch of {sum(k0):.1f} ms; "
+                f"outside {ms - span:.1f} against {ms0 - span0:.1f} ms | "
+                f"card: {card}")
+        out[name] = [r[:4] for r in rows]
+        del rows
+    Lg = fr_g.group_size(L)
+    cap = F.resident_lanes(fr_g.plan, dev, Lg)
+    log(f"[5h resident capacity] {fr_g.plan.cuda_name}: {cap} lanes "
+        f"resident at once, {cap // Lg} groups of {Lg} | card: {card}")
+    if cap < Lg:
+        raise SmokeFailure(f"one lane group of {Lg} lanes does not fit "
+                           f"resident ({cap} lanes)")
+    tiles = -(-2 * cap // L)
+    Lb = tiles * L
+    ub, lvb, tol, gate = fr_g.prepare_inputs(
+        u[:, :RESIDENT_CHECK_SAMPLES], np.tile(lane_values, (tiles, 1)))
+    lane_args = [lvb, tol, gate, *fr_g._coef_tables(Lb)]
+    st = {k: v.repeat(1, tiles).contiguous()
+          for k, v in seeds["groups"].items()}
+    F.LAUNCH_EVENTS = []
+    whole = F.fused_step(fr_g.plan, ub, *lane_args[:3], st, lane_args[3:],
+                         Lg)
+    parts = []
+    for g in range(0, Lb, Lg):
+        lv_g, tol_g, gate_g, ch, cl = [t[:, g:g + Lg].contiguous()
+                                       for t in lane_args]
+        parts.append(F.fused_step(
+            fr_g.plan, ub, lv_g, tol_g, gate_g,
+            {k: v[:, g:g + Lg].contiguous() for k, v in st.items()},
+            (ch, cl), Lg))
+    torch.cuda.synchronize()
+    (a, b), *rest = F.LAUNCH_EVENTS
+    F.LAUNCH_EVENTS = None
+    ms_whole = a.elapsed_time(b)
+    ms_parts = sum(x.elapsed_time(y) for x, y in rest)
+    ys, sts, fails, iters, floored = zip(*parts)
+    bad = [] if bool(torch.equal(whole[0], torch.cat(ys, 2))) else ["y"]
+    bad += [k for k in whole[1]
+            if not torch.equal(whole[1][k],
+                               torch.cat([x[k] for x in sts], 1))]
+    bad += [n for n, w, p in (("fails", whole[2], torch.cat(fails)),
+                              ("iters", whole[3], torch.cat(iters, 1)),
+                              ("floored", whole[4], torch.cat(floored)))
+            if not torch.equal(w, p)]
+    log(f"[5h resident capacity] {Lb} lanes x {RESIDENT_CHECK_SAMPLES} "
+        f"samples ({Lb / cap:.2f} x the resident lanes, {Lb // Lg} groups) "
+        f"in one call: {ms_whole:.1f} ms; its {Lb // Lg} groups one at a "
+        f"time: {ms_parts:.1f} ms; "
+        + ("bit for bit in y, state, fails, iters and floored" if not bad
+           else f"NOT bit for bit: {bad}") + f" | card: {card}")
+    if bad:
+        raise SmokeFailure(f"5h: a group grid above the resident capacity "
+                           f"differs from its groups one at a time in {bad}")
+    out["resident"] = dict(lanes=cap, grid=Lb, ms=ms_whole,
+                           one_at_a_time_ms=ms_parts)
+    return out
 
 
 def describe(name, m, fr, secs):
@@ -790,6 +945,20 @@ def main():
             runners["groups " + mode] = groups[mode]
             keys["groups " + mode] = start(ex, "groups " + mode,
                                            groups[mode])
+        # the mesh path: the main path's and the groups path's runners over
+        # a mesh that names the card twice, on copies of the main path's
+        # model as built, so their headers (and builds) are those paths'
+        meshed, mesh_seeds = {}, {}
+        for name, kw in (("main", dict(powerup="steady", **prod)),
+                         ("groups", dict(fast_iters=1))):
+            meshed[name] = FusedRunner(copy.deepcopy(m_so_built),
+                                       lane_input_idx=(1, 2), device=dev,
+                                       mesh=(dev, dev), **kw)
+            mesh_seeds[name] = load_steady_seed(
+                os.path.join(HERE, ".steadyseed_cache.npz"), SEED_TAG,
+                meshed[name])
+            runners["mesh " + name] = meshed[name]
+            keys["mesh " + name] = start(ex, "mesh " + name, meshed[name])
         t_runners = time.time() - t1
         pre_refs = pre_refs()
         t_refs = time.time() - t1
@@ -820,7 +989,8 @@ def main():
         B.load_kernel(r.plan)
     log(f"[2 build] {len(libs)} builds for {len(runners)} runners, total "
         f"{time.time() - t0:.1f}s (parallel; beside them "
-        f"{len(abl) + 1 + len(tiers) + len(groups)} runners of the step "
+        f"{len(abl) + 1 + len(tiers) + len(groups) + len(meshed)} "
+        "runners of the step "
         "configurations "
         f"prepared in {t_runners:.1f}s, and {len(pre_lanes)} host "
         f"references x {PRESETS_REF_SAMPLES} samples done at "
@@ -886,9 +1056,10 @@ def main():
 
     t0 = time.time()
     lanes = S.select_parity_lanes(L_MAIN, 16, S.stress_lanes("pots", L_MAIN))
-    y_pw, y_st, main_launches, _, _ = drive_path(
+    y_pw, y_st, main_launches, _, main_rows = drive_path(
         "5 main path", fr_so, u, lane_values, seed, WINDOWS, lanes, card,
-        torch, F, op_counts)
+        torch, F, op_counts, hold=MESH_WINDOWS)
+    main_rows = main_rows[:MESH_WINDOWS]
     score("5 main path", lanes,
           [f"drive {drive[i]:.3f}, tone {tone[i]:.3f}" for i in lanes],
           y_pw, y_st,
@@ -964,7 +1135,7 @@ def main():
 
     t0 = time.time()
     lanes = S.select_parity_lanes(L_MAIN, 16, S.stress_lanes("pots", L_MAIN))
-    groups_launches, twin_launches = groups_path(
+    groups_launches, twin_launches, group_row = groups_path(
         groups["group"], groups["merge"], u, lane_values,
         (group_seeds["group"], group_seeds["merge"]), lanes,
         [f"drive {drive[i]:.3f}, tone {tone[i]:.3f}" for i in lanes],
@@ -972,6 +1143,16 @@ def main():
                    tone[i], powerup="steady") for i in lanes],
         card, torch, F, op_counts)
     log(f"[5g groups path] {time.time() - t0:.1f}s")
+
+    t0 = time.time()
+    for name, fr in (("main", fr_so), ("groups", groups["group"])):
+        if meshed[name].plan.cuda_name != fr.plan.cuda_name:
+            raise SmokeFailure(f"the mesh {name} path has a build of its "
+                               "own: its header differs from its path's")
+    mesh_path(meshed, mesh_seeds, fr_so, groups["group"], main_rows,
+              group_row, u, lane_values, card, dev, torch, F, op_counts)
+    del main_rows, group_row
+    log(f"[5h mesh] {time.time() - t0:.1f}s")
 
     # one entry per build: (name, runner key, the launch counts of the
     # path it runs on, how many of them are this build's)

@@ -2,9 +2,9 @@
 against the JAX package, one knob value at a time.
 
 The JAX package's ``FusedRunner`` runs every configuration of its step
-knobs (``acme_tpu/ops/fused.py:303-547``); the port runs all of them but
-``mesh`` (lane groups, ``fast_verify="group"`` with a fast path, are
-tests/test_torch_groups.py's).  One case per row
+knobs (``acme_tpu/ops/fused.py:303-547``); so does the port (lane groups,
+``fast_verify="group"`` with a fast path, are tests/test_torch_groups.py's,
+``mesh`` tests/test_torch_mesh.py's).  One case per row
 of the table of branches (each knob value over the bench's production
 configuration ``PRODUCTION``, or over the JAX defaults where the value
 only means something there), the JAX defaults themselves and the ``FAST``

@@ -175,8 +175,10 @@ def test_lane_groups_match_plain_on_card():
     lanes x 64 samples, the first group's levels where keep tests fail,
     the second's where they never do: bit for bit as the plain version in
     y, state, fails, floored and iters; the redo reaches the passing lanes
-    of the first group only (against the merge build); and a grid the
-    card cannot hold resident at once raises instead of running."""
+    of the first group only (against the merge build); and a grid of
+    262144 lanes, more than the card holds resident at once, runs in
+    batches of whole groups and equals its 128 groups of 2048 run one at
+    a time, bit for bit in y, state, fails, iters and floored."""
     dev = _card()
     rng = np.random.default_rng(5)
     lv = np.concatenate([rng.uniform(0.01, 3.0, 1024),
@@ -206,5 +208,63 @@ def test_lane_groups_match_plain_on_card():
     assert moved[:1024].any() and not moved[1024:].any()
     fr = FusedRunner(diodeclipper_model(), lane_scale_idx=(0,),
                      **dict(PROD, fast_verify="group"), device=dev)
-    with pytest.raises(RuntimeError, match="Cooperative"):
-        fr.run(u_time[:, :1], np.full((1 << 18, 1), 0.5))
+    L = 1 << 18
+    Lg = fr.group_size(L)
+    assert 0 < F.resident_lanes(fr.plan, dev, Lg) < L
+    u, lvt, tol, gate = fr.prepare_inputs(
+        u_time[:, :16], rng.uniform(0.01, 3.0, L)[:, None])
+    lane_args = [lvt, tol, gate, *fr._coef_tables(L)]
+    st = fr.initial_state(L)
+    before = sum(F.LAUNCHES.values())
+    whole = F.fused_step(fr.plan, u, *lane_args[:3], st, lane_args[3:], Lg)
+    assert sum(F.LAUNCHES.values()) == before + 1
+    parts = []
+    for g in range(0, L, Lg):
+        lv_g, tol_g, gate_g, ch, cl = [t[:, g:g + Lg].contiguous()
+                                       for t in lane_args]
+        parts.append(F.fused_step(
+            fr.plan, u, lv_g, tol_g, gate_g,
+            {k: v[:, g:g + Lg].contiguous() for k, v in st.items()},
+            (ch, cl), Lg))
+    y, states, fails, iters, floored = zip(*parts)
+    assert torch.equal(whole[0], torch.cat(y, 2))
+    for k in whole[1]:
+        assert torch.equal(whole[1][k], torch.cat([s_[k] for s_ in states],
+                                                  1)), k
+    assert torch.equal(whole[2], torch.cat(fails))
+    assert torch.equal(whole[3], torch.cat(iters, 1))
+    assert torch.equal(whole[4], torch.cat(floored))
+    assert (whole[3] > whole[3].min()).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["production", "group"])
+def test_mesh_of_one_card_matches_one_device(config):
+    """A mesh that names the card twice, ``(cuda:0, cuda:0)``: two entries
+    of 2048 lanes, each launched on a stream of its own, gathered on the
+    card; the level sweep from cold (its power-up sibling inherits the
+    mesh) in the production configuration, and lane groups of 2048 (the
+    same partition split or not): bit for bit as one device in y, state,
+    fails, iters and floored, with one launch per entry and build."""
+    dev = _card()
+    kw = dict(PROD, powerup="safe", powerup_samples=16)
+    if config == "group":
+        kw.update(fast_verify="group", group_lanes=2048)
+    lv = np.random.default_rng(5).uniform(0.01, 3.0, 4096)[:, None]
+    u_time = (1.5 * np.sin(2 * np.pi * 1000 / FS * np.arange(48)))[None, :]
+    runs = []
+    for mesh in ((dev, dev), None):
+        fr = FusedRunner(diodeclipper_model(), lane_scale_idx=(0,),
+                         device=dev, mesh=mesh, **kw)
+        assert fr.group_size(4096) == 2048
+        F.LAUNCHES.clear()
+        runs.append(fr.run(u_time, lv))
+        torch.cuda.synchronize()
+        assert sum(F.LAUNCHES.values()) == (4 if mesh else 2)
+        assert len(F.LAUNCHES) == 2
+    (ym, sm, im), (y1, s1, i1) = runs
+    assert torch.equal(ym, y1)
+    for k in s1:
+        assert torch.equal(sm[k], s1[k]), k
+    for a, b in zip(im, i1):
+        assert torch.equal(a, b)

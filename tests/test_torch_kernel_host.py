@@ -359,3 +359,39 @@ def test_step_lane_groups_bitwise(host_lib, case):
                              fr.initial_state(2048))
     moved = (its["group"] != its["merge"]).any(0)
     assert moved[:1024].any() and not moved[1024:].any()
+
+
+@pytest.mark.parametrize("mode", ["group", "merge"])
+def test_step_batches_at_lane_offsets_bitwise(host_lib, mode):
+    """The card launches a build that couples lane groups in batches of
+    whole groups, each at its own lane offset (``csrc/fused.cu``
+    ``for_batches``, the kernel indexing lanes from ``lane0``); the host
+    build goes through the same path: two groups of 1024 run as two
+    batches, at lanes 0 and 1024, equal one call bit for bit in y, state,
+    fails, floored and iters; a build without groups in batches of 384
+    lanes (the last one short) too; a group build's batch of part of a
+    group raises."""
+    _, out = host_lib
+    fr = FusedRunner(M.diodeclipper_model(), lane_scale_idx=(0,),
+                     **dict(PROD, fast_verify=mode, group_lanes=1024),
+                     device="cpu")
+    assert fr.plan.verify_group == (mode == "group")
+    lib = load_host(fr.plan, out)
+    rng = np.random.default_rng(5)
+    lv = np.concatenate([rng.uniform(0.01, 3.0, 1024),
+                         rng.uniform(0.01, 0.05, 1024)])[:, None]
+    u, lvt, tol, gate = fr.prepare_inputs(_sine(1.5, 24), lv)
+    args = (fr.plan, u, lvt, tol, gate, fr.initial_state(2048),
+            fr._coef_tables(2048), fr._group(2048))
+    whole = F.host_step(lib, *args)
+    batched = F.host_step(lib, *args, batch=1024 if mode == "group" else 384)
+    for name, b, w in zip(("y", "state", "fails", "iters", "floored"),
+                          batched, whole):
+        if name == "state":
+            for k in w:
+                assert torch.equal(b[k], w[k]), k
+        else:
+            assert torch.equal(b, w), name
+    if mode == "group":
+        with pytest.raises(RuntimeError, match="not whole lane groups"):
+            F.host_step(lib, *args, batch=512)

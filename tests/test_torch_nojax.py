@@ -38,6 +38,7 @@ SCRIPT = textwrap.dedent("""
                                      "acme_tpu_torch."):
         __import__(mod.name)
     import acme_tpu_torch.ablate
+    import acme_tpu_torch.parallel
     from acme_tpu_torch.models import diodeclipper_model
     from acme_tpu_torch.sweeps import PRODUCTION
     fr = acme_tpu_torch.FusedRunner(diodeclipper_model(),

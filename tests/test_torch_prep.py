@@ -81,20 +81,63 @@ def test_prepared_arrays_equal(case):
         tt, tg = tr._lane_tolerances(lv_c, 128)
         np.testing.assert_array_equal(jt.reshape(jt.shape[0], -1), tt)
         np.testing.assert_array_equal(jg.reshape(jg.shape[0], -1), tg)
-    # the initial (cold) state, in the JAX layout
-    js = jr.initial_state(128)
-    ts = state_to_jax(tr.initial_state(128))
-    for key, v in ts.items():
+    # the initial state, cold and at the centering steady state, in the
+    # JAX layout
+    for at_steady in (False, True):
+        js = jr.initial_state(128, at_steady=at_steady)
+        ts = state_to_jax(tr.initial_state(128, at_steady=at_steady))
+        for key, v in ts.items():
+            np.testing.assert_array_equal(np.asarray(js[key]), v,
+                                          err_msg=f"{key} {at_steady}")
+
+
+def clippers(pkg, rs):
+    """Diode clippers of package ``pkg`` (``acme_tpu`` or
+    ``acme_tpu_torch``) with other series resistors."""
+    out = []
+    for r in rs:
+        circ = pkg.models.diodeclipper()
+        circ.delete("r1")
+        circ.add("r1", pkg.resistor(r))
+        circ.connect(("r1", 1), ("j_in", "+"))
+        circ.connect(("r1", 2), ("d1", "+"))
+        out.append(pkg.DiscreteModel(circ, 1 / 44100))
+    return out
+
+
+@pytest.mark.parametrize("at_steady", [False, True])
+def test_initial_state_per_lane_models(at_steady):
+    """Both forms of ``initial_state`` for three clippers as per-lane
+    models: each lane starts at its own model's point, as in the JAX
+    runner's arrays; ``at_steady`` puts x, z and wp at zero (the clipper
+    at rest is there cold too; test_prepared_arrays_equal's Super Overs
+    are not)."""
+    import acme_tpu
+    import acme_tpu_torch
+    rs = (820.0, 1500.0, 4700.0)
+    jr = JaxRunner(clippers(acme_tpu, rs), interpret=True,
+                   compile_cache=False)
+    tr = FusedRunner(clippers(acme_tpu_torch, rs), device="cpu")
+    assert tr.nvar > 0
+    js = jr.initial_state(256, at_steady=at_steady)
+    ts = tr.initial_state(256, at_steady=at_steady)
+    for key, v in state_to_jax(ts).items():
         np.testing.assert_array_equal(np.asarray(js[key]), v, err_msg=key)
+    if at_steady:
+        for key in ("x", "xlo", "z", "zw", "wp"):
+            assert (ts[key] == 0).all(), key
+    assert not torch.equal(ts["dzdp"][:, 0], ts["dzdp"][:, 1])
 
 
 def test_unported_configurations_raise():
-    """One configuration stays unported: ``mesh``.  Lane groups
-    (``fast_verify="group"`` with a fast path, whose redo couples a lane
-    group) build, also as the power-up sibling's overrides, with the build
-    named for it; ``"group"`` without a fast path is inert."""
+    """Every configuration is ported: a ``mesh`` that is no sequence of
+    devices raises ValueError (tests/test_torch_mesh.py runs valid ones).
+    Lane groups (``fast_verify="group"`` with a fast path, whose redo
+    couples a lane group) build, also as the power-up sibling's overrides,
+    with the build named for it; ``"group"`` without a fast path is
+    inert."""
     m = TM.diodeclipper_model()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="mesh must be"):
         FusedRunner(m, mesh=object(), device="cpu")
     for kw in (dict(fast_iters=1), dict(polish_only=True),
                dict(fast_iters=2, fast_verify="group", group_lanes=1024)):
@@ -141,6 +184,39 @@ def test_converter_defaults_to_the_card():
         device="cpu")
     assert all(v.device.type == "cpu" and v.shape == (1, 128)
                for v in st.values())
+
+
+def test_state_without_zlo_pmode_runs():
+    """A state holding only the six older keys (no ``zlo``, no ``pmode``)
+    runs as the JAX runner takes it (fused.py:2967-2970): the same result,
+    bit for bit, as with those two keys at zero, through ``run``,
+    ``plain_run`` and ``state_from_jax``; the state returned has all
+    eight."""
+    from acme_tpu_torch import convert
+    from acme_tpu_torch.ops import fused as F
+    fr = FusedRunner(TM.diodeclipper_model(), lane_scale_idx=(0,), **PROD,
+                     device="cpu")
+    lv = np.linspace(0.1, 2.0, 128)[:, None]
+    u = 1.5 * np.sin(2 * np.pi * 1000 / 44100 * np.arange(48))[None, :]
+    _, warm, _ = fr.run(u[:, :16], lv)
+    six = {k: v for k, v in warm.items() if k not in ("zlo", "pmode")}
+    zero = dict(six, zlo=torch.zeros_like(warm["zlo"]),
+                pmode=torch.zeros_like(warm["pmode"]))
+    for got, want in ((fr.run(u, lv, state=six), fr.run(u, lv, state=zero)),
+                      (fr.run(u, lv, state=convert.state_from_jax(
+                          state_to_jax(six), device="cpu")),
+                       fr.run(u, lv, state=zero))):
+        assert torch.equal(got[0], want[0])
+        assert sorted(got[1]) == sorted(F.STATE_KEYS)
+        for k in F.STATE_KEYS:
+            assert torch.equal(got[1][k], want[1][k]), k
+        for a, b in zip(got[2], want[2]):
+            assert torch.equal(a, b)
+    args = fr.prepare_inputs(u, lv)
+    got = F.plain_run(fr.plan, *args, six, fr._coef_tables(128))
+    want = F.plain_run(fr.plan, *args, zero, fr._coef_tables(128))
+    assert all(torch.equal(got[1][k], want[1][k]) for k in F.STATE_KEYS)
+    assert torch.equal(got[0], want[0])
 
 
 def test_stack_limit_constants_agree():
