@@ -16,9 +16,11 @@
 #ifdef __CUDACC__
 #define HD __host__ __device__
 #define ACME_NOINLINE __noinline__
+#define ACME_FORCEINLINE __forceinline__
 #else
 #define HD
 #define ACME_NOINLINE __attribute__((noinline))
+#define ACME_FORCEINLINE inline
 #endif
 
 // -- float32 with jax.numpy semantics ----------------------------------------

@@ -402,7 +402,7 @@ HD inline void homotopy_rescue(const Ctx<S>& cx, Solved<S>& st) {
 // double-float-residual Newton rescue (fused.py:1585-1637), in df physics
 // whenever the runner has df_polish, else in the polish loop's mode
 template <class S>
-ACME_NOINLINE HD void df_rescue(const Ctx<S>& cx, Solved<S>& st) {
+ACME_FORCEINLINE HD void df_rescue(const Ctx<S>& cx, Solved<S>& st) {
   constexpr int K3 = 24;
   float zs[S::NN];
   for (int a = 0; a < S::NN; ++a) zs[a] = st.z[a];
@@ -429,8 +429,8 @@ ACME_NOINLINE HD void df_rescue(const Ctx<S>& cx, Solved<S>& st) {
 }
 
 template <class S>
-ACME_NOINLINE HD void full_solve(const Ctx<S>& cx, const float (&zs)[S::NN],
-                                 Solved<S>& st) {
+ACME_FORCEINLINE HD void full_solve(const Ctx<S>& cx,
+                                    const float (&zs)[S::NN], Solved<S>& st) {
   run_newton<S>(cx, zs, st);
   if (!(st.r < st.g)) homotopy_rescue<S>(cx, st);
   if (!(st.r < st.g)) df_rescue<S>(cx, st);
@@ -543,8 +543,8 @@ HD inline float vd_pass(const Ctx<S>& cx, PolishSt<S>& st) {
 // the polish loop (plain, compensated or df) with its unrolled prefix,
 // then the verdict, if any, and the fold continuation (fused.py:1750-2016)
 template <class S>
-ACME_NOINLINE HD void polish_all(const Ctx<S>& cx, const float (&zs)[S::NN],
-                                 PolishSt<S>& st) {
+ACME_FORCEINLINE HD void polish_all(const Ctx<S>& cx,
+                                    const float (&zs)[S::NN], PolishSt<S>& st) {
   for (int a = 0; a < S::NN; ++a) st.z[a] = zs[a], st.zlo[a] = 0.0f;
   for (int b = 0; b < Ctx<S>::NP; ++b)
     for (int a = 0; a < S::NN; ++a) st.cols[b][a] = 0.0f;

@@ -1,6 +1,10 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: build, check, drive.
 
     python3 chip_smoke.py            # the whole run (needs one CUDA card)
+    python3 chip_smoke.py --scaling  # phases 1, 2 and 4s alone
+    python3 chip_smoke.py --ab ROOT [ROOT ...]
+                                     # the same windows of each checkout
+                                     # ROOT in turns, bit for bit
 
 Phases, each printed with its seconds:
   1. the device (name, power limit, torch / CUDA / nvcc versions);
@@ -113,6 +117,24 @@ measured, over the H100's float32 peak, and its bytes (inputs read once,
 outputs written once) over the card's memory rate.
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 nonzero before it.
+
+Two measurements run alone, with no result line:
+  4s. ``--scaling``: the main path's production build and the full
+     path's at 4096, 8192, 16384 and 32768 lanes (the 4096 lanes' values
+     and state tiled: the main path's from the seeds over 4096 samples,
+     the full path's from where its power-up window left it over 2048),
+     one launch each: kernel ms, aggregate lane-samples per second, and
+     the first 4096 lanes bit for bit as the 4096-lane launch; ptxas's
+     numbers and the SASS size of each build;
+  ab. ``--ab ROOT [ROOT ...]``: for each checkout of the repo in the order
+     given (a checkout named twice runs twice: parent, change, change,
+     parent), a process of its own (``--windows ROOT``) that builds that
+     checkout's main, level and full paths' builds and runs the main
+     path's first two windows from the seeds and the level and full
+     paths' first window from cold, printing kernel ms per window; every
+     visit's outputs bit for bit as the first's (a digest of y, state,
+     fails, iters and floored), each checkout's kernel ms against the
+     first's.
 """
 
 from __future__ import annotations
@@ -122,6 +144,7 @@ import hashlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -186,6 +209,13 @@ MESH_WINDOWS = 2
 RESIDENT_CHECK_SAMPLES = 16
 # phase 4's timed launches of a kernel, queued behind its warm-up launch
 CHECK_LAUNCHES = 3
+# phase 4s: the main and full paths' production builds at these lane
+# counts (their 4096 lanes and states tiled), one launch of this many
+# samples each (half as many for the full path)
+SCALING_LANES = (4096, 8192, 16384, 32768)
+SCALING_SAMPLES = 4096
+# --ab: the main path's chained windows from the seeds in each visit
+AB_MAIN_WINDOWS = 2
 # nvcc processes at a time
 BUILD_WORKERS = 12
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): float32
@@ -403,6 +433,61 @@ def drive_path(label, fr, u, lane_values, state, windows, keep, card, torch,
     counts = [(int(info.fails.sum()), int(info.floored.sum()))
               for _, info, *_ in rows]
     return y_first, y_last, launches, counts, rows
+
+
+def lane_scaling(label, fr, u, lane_values, state, card, torch, F, op_counts,
+                 samples=SCALING_SAMPLES):
+    """Phase 4s: one launch of ``fr``'s build at each lane count of
+    SCALING_LANES (the 4096 lanes' values and state tiled) over
+    ``samples`` samples, each timed with CUDA events: kernel ms, lane-samples
+    per second, evaluations per lane-sample, and the first 4096 lanes bit
+    for bit as the 4096-lane launch (the lanes are independent)."""
+    L0 = lane_values.shape[0]
+    rates, first = {}, None
+    # the first launch of a library also loads its module
+    F.fused_step(fr.plan, *fr.prepare_inputs(u[:, :16], lane_values),
+                 state, fr._coef_tables(L0), fr._group(L0))
+    floors = fr._steady_floors
+    for L in SCALING_LANES:
+        tiles = L // L0
+        # the seeds' residual floors tiled with them (per-lane tolerances)
+        if floors is not None:
+            fr._steady_floors = np.tile(floors, (tiles, 1))
+        ut, lv, tol, gate = fr.prepare_inputs(u[:, :samples],
+                                              np.tile(lane_values, (tiles, 1)))
+        fr._steady_floors = floors
+        st = {k: v.repeat(1, tiles).contiguous() for k, v in state.items()}
+        F.LAUNCH_EVENTS = []
+        y, st_out, fails, iters, floored = F.fused_step(
+            fr.plan, ut, lv, tol, gate, st, fr._coef_tables(L), fr._group(L))
+        torch.cuda.synchronize()
+        (a, b), = F.LAUNCH_EVENTS
+        F.LAUNCH_EVENTS = None
+        ms = a.elapsed_time(b)
+        rate = L * samples / (ms / 1e3)
+        evals = iters.double().mean(dim=1).cpu().numpy() / samples
+        b_ms, b_by = bound(fr.plan, L, samples, evals, F, op_counts)
+        if first is None:
+            first = (y, st_out, fails, iters, floored)
+        else:
+            fy, fst, ff, fi, ffl = first
+            bad = [] if torch.equal(y[:, :, :L0], fy) else ["y"]
+            bad += [k for k in fst if not torch.equal(st_out[k][:, :L0],
+                                                      fst[k])]
+            bad += [n for n, a_, b_ in (("fails", fails[:L0], ff),
+                                        ("iters", iters[:, :L0], fi),
+                                        ("floored", floored[:L0], ffl))
+                    if not torch.equal(a_, b_)]
+            if bad:
+                raise SmokeFailure(f"{label}: the first {L0} of {L} lanes "
+                                   f"differ from the {L0}-lane launch in "
+                                   f"{bad}")
+        rates[L] = rate
+        log(f"[{label}] {L} lanes x {samples} samples: kernel {ms:.1f} ms, "
+            f"{rate / 1e6:.3f} M lane-samples/s ({rate / rates[L0]:.2f} x "
+            f"the {L0}-lane rate), evals/lane-sample {evals.sum():.3f}, "
+            f"bound {b_ms:.3f} ms ({b_by}) | card: {card}")
+        del y, st_out
 
 
 def steady_windows_clean(label, counts):
@@ -1249,9 +1334,188 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
+def sass_size(path):
+    """(instructions, bytes) of the kernel's SASS in library ``path``
+    (``cuobjdump -sass``; (0, 0) without it): the instruction stream its
+    warps fetch."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        out = subprocess.run([tool, "-sass", path], capture_output=True,
+                             text=True, timeout=300).stdout
+    except (OSError, subprocess.SubprocessError):
+        return 0, 0
+    n = len(re.findall(r"/\*[0-9a-f]{4,}\*/", out))
+    return n, 16 * n
+
+
+def port_paths(root, torch):
+    """The card, and the main, level and full paths' production runners
+    of the checkout at ``root`` with the main path's seeds, their lane
+    values and the level sweep's; each runner's build (and its power-up
+    sibling's) compiled, ptxas's numbers and the SASS size printed."""
+    if not torch.cuda.is_available():
+        raise SmokeFailure("no CUDA device: this smoke run needs one GPU")
+    sys.path.insert(0, root)
+    import acme_tpu_torch
+    from acme_tpu_torch import FusedRunner
+    from acme_tpu_torch import sweeps as S
+    from acme_tpu_torch.convert import load_steady_seed
+    from acme_tpu_torch.ops import build as B
+    if not os.path.abspath(acme_tpu_torch.__file__).startswith(root + os.sep):
+        raise SmokeFailure(f"acme_tpu_torch imported from "
+                           f"{acme_tpu_torch.__file__}, not from {root}")
+    dev = torch.device("cuda", 0)
+    card = smi()
+    log(f"[1 device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
+        f"torch {torch.__version__} CUDA {torch.version.cuda} | {root}")
+    t0 = time.time()
+    m_so, m_lvl, m_full = S.build_models(
+        [S.model_spec("pots", "chain", FS), S.model_spec("level", "chain", FS),
+         S.model_spec("level", "full", FS)])
+    fr_so = FusedRunner(m_so, lane_input_idx=(1, 2), device=dev,
+                        powerup="steady", **S.PRODUCTION)
+    seed = load_steady_seed(os.path.join(root, ".steadyseed_cache.npz"),
+                            SEED_TAG, fr_so)
+    _, _, _, lane_values, _ = S.lane_grid("pots", L_MAIN)
+    _, _, _, lv_level, lv_cfg = S.lane_grid("level", L_MAIN)
+    cold = dict(device=dev, powerup="safe", powerup_samples=POWERUP_SAMPLES,
+                **S.PRODUCTION, **lv_cfg)
+    runners = {"main": fr_so, "level": FusedRunner(m_lvl, **cold),
+               "full": FusedRunner(m_full, **cold)}
+    log(f"[3 model] main, level and full runners in "
+        f"{time.time() - t0:.1f}s")
+    t0 = time.time()
+    builds = dict(runners)
+    for n in ("level", "full"):
+        builds[n + " powerup"] = runners[n]._powerup_runner()
+    with ThreadPoolExecutor(BUILD_WORKERS) as ex:
+        paths = dict(zip(builds, ex.map(lambda r: B.compile_library(r.plan),
+                                        builds.values())))
+    log(f"[2 build] {len(paths)} builds in {time.time() - t0:.1f}s")
+    for name, path in paths.items():
+        secs, out = B.LAST_BUILD.get(path, (0.0, ""))
+        n, nbytes = sass_size(path)
+        log(f"[2 build] {name}: nvcc {secs:.1f}s -> {os.path.basename(path)}"
+            f"; SASS {n} instructions ({nbytes / 1024:.0f} KiB)")
+        for ln in out.splitlines():
+            if "Used" in ln or ("stack frame" in ln and not ln.strip()
+                                .startswith("0 bytes stack frame, 0 bytes")):
+                log(f"    ptxas: {ln.strip()}")
+    return card, runners, seed, lane_values, lv_level
+
+
+def scaling_main():
+    """``--scaling``: phases 1 and 2 for the main, level and full paths,
+    then phase 4s for the main path's build from the seeds and for the
+    full path's from the state its power-up window left.  No result
+    line."""
+    import torch
+    card, runners, seed, lane_values, lv_level = port_paths(HERE, torch)
+    from acme_tpu_torch.ops import fused as F
+    from acme_tpu_torch.ops.emit import op_counts
+    u = (0.2 * np.sin(2 * np.pi * 1000 / FS * np.arange(FS)))[None, :]
+    t0 = time.time()
+    lane_scaling("4s lane scaling, main path", runners["main"], u,
+                 lane_values, seed, card, torch, F, op_counts)
+    *_, rows = drive_path("4s full path's power-up window", runners["full"],
+                          u[:, :2 * POWERUP_SAMPLES], lv_level, None, 1, [0],
+                          card, torch, F, op_counts, hold=1)
+    lane_scaling("4s lane scaling, full path", runners["full"], u, lv_level,
+                 rows[0][4][1], card, torch, F, op_counts,
+                 samples=SCALING_SAMPLES // 2)
+    log(f"[4s lane scaling] {time.time() - t0:.1f}s")
+
+
+def digest(window):
+    """sha256 of one window's (y, state, fails, iters, floored) bits."""
+    (y, state), info = window[4], window[1]
+    h = hashlib.sha256()
+    for t in [y] + [state[k] for k in sorted(state)] + [
+            info.fails, info.iters, info.floored]:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def windows_main(root):
+    """``--windows ROOT``: the checkout at ROOT's main path (its first
+    AB_MAIN_WINDOWS windows from the seeds), then the level and full
+    paths' first window from cold; the last line one JSON object: each
+    path's window ms, kernel ms and digests."""
+    import torch
+    card, runners, seed, lane_values, lv_level = port_paths(
+        os.path.abspath(root), torch)
+    from acme_tpu_torch.ops import fused as F
+    from acme_tpu_torch.ops.emit import op_counts
+    u = (0.2 * np.sin(2 * np.pi * 1000 / FS * np.arange(FS)))[None, :]
+    out = {}
+    for name, lv, state, windows in (
+            ("main", lane_values, seed, AB_MAIN_WINDOWS),
+            ("level", lv_level, None, 1), ("full", lv_level, None, 1)):
+        *_, rows = drive_path(f"ab {name} path", runners[name], u, lv, state,
+                              windows, [0], card, torch, F, op_counts,
+                              hold=windows)
+        out[name] = {"ms": [r[0] for r in rows],
+                     "kernel_ms": [sum(r[2]) for r in rows],
+                     "digest": [digest(r) for r in rows]}
+        del rows
+    print(json.dumps({"root": root, "card": card, "paths": out}))
+
+
+def ab_main(roots):
+    """``--ab ROOT [ROOT ...]``: ``--windows`` for each checkout in the
+    order given, each in a process of its own; fails unless every visit's
+    windows are bit for bit the first visit's.  Prints each visit's kernel
+    ms and each checkout's mean against the first checkout's."""
+    visits = []
+    for root in roots:
+        t0 = time.time()
+        run = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--windows", root], capture_output=True,
+                             text=True, timeout=1800)
+        lines = run.stdout.strip().splitlines()
+        for ln in lines[:-1]:
+            log(f"  {ln}")
+        if run.returncode != 0 or not lines:
+            log(run.stderr[-4000:])
+            raise SmokeFailure(f"--windows {root} exited {run.returncode}")
+        visits.append(json.loads(lines[-1]))
+        log(f"[ab] {root}: {time.time() - t0:.1f}s")
+    first = visits[0]["paths"]
+    for v in visits[1:]:
+        for name, p in v["paths"].items():
+            if p["digest"] != first[name]["digest"]:
+                raise SmokeFailure(f"--ab: {v['root']}'s {name} path is not "
+                                   f"bit for bit as {visits[0]['root']}'s")
+    log(f"[ab] every visit bit for bit as the first in y, state, fails, "
+        f"iters and floored | card: {visits[0]['card']}")
+    means = {}
+    for name in first:
+        for v in visits:
+            log(f"[ab] {name} path, {v['root']}: kernel ms "
+                f"{', '.join(f'{x:.1f}' for x in v['paths'][name]['kernel_ms'])}"
+                f"; window ms "
+                f"{', '.join(f'{x:.1f}' for x in v['paths'][name]['ms'])}")
+        for root in dict.fromkeys(roots):
+            ks = [k for v in visits if v["root"] == root
+                  for k in v["paths"][name]["kernel_ms"]]
+            means[name, root] = sum(ks) / len(ks)
+        for root in dict.fromkeys(roots):
+            log(f"[ab] {name} path, {root}: mean kernel ms "
+                f"{means[name, root]:.1f} = "
+                f"{means[name, root] / means[name, roots[0]]:.4f} x "
+                f"{roots[0]}'s")
+
+
 if __name__ == "__main__":
     try:
-        main()
+        if sys.argv[1:2] == ["--scaling"]:
+            scaling_main()
+        elif sys.argv[1:2] == ["--windows"]:
+            windows_main(sys.argv[2])
+        elif sys.argv[1:2] == ["--ab"]:
+            ab_main(sys.argv[2:])
+        else:
+            main()
     except SmokeFailure as e:
         print(f"FAILED: {e}", file=sys.stderr)
         sys.exit(1)

@@ -268,3 +268,56 @@ def test_mesh_of_one_card_matches_one_device(config):
         assert torch.equal(sm[k], s1[k]), k
     for a, b in zip(im, i1):
         assert torch.equal(a, b)
+
+
+def _bit_for_bit(got, want):
+    for name, a, b in zip(("y", "state", "fails", "iters", "floored"), got,
+                          want):
+        if name == "state":
+            for key in b:
+                assert torch.equal(a[key], b[key]), key
+        else:
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["main", "full"])
+def test_production_builds_bit_for_bit_on_card(path):
+    """The main and full paths' production builds, one launch each, bit
+    for bit as the plain version in y, state, fails, iters and floored.
+    The main path: 512 lanes of the committed seeds x 16 samples, lane 3
+    started off its steady point so that it takes the redo ladder while
+    the other lanes of its warp do not; the full path: 128 input levels,
+    its power-up sibling's 16 samples from cold, then 8 of the production
+    build."""
+    dev = _card()
+    import os
+    from acme_tpu_torch.convert import load_steady_seed
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    u_time = (0.2 * np.sin(2 * np.pi * 1000 / FS * np.arange(32)))[None, :]
+    if path == "main":
+        fr = FusedRunner(S.build_model("pots", "chain"), device=dev,
+                         lane_input_idx=(1, 2), powerup="steady", **PROD)
+        lv = S.lane_grid("pots", 4096)[3][:512]
+        st = load_steady_seed(os.path.join(root, ".steadyseed_cache.npz"),
+                              "seed2_pots_chain_fs44100_L4096", fr,
+                              lanes=np.arange(len(lv)))
+        st["zw"][:, 3] *= 0.9
+        st["dzdp"][:, 3] = 0.0
+        ut = u_time[:, :16]
+    else:
+        fr = FusedRunner(S.build_model("level", "full"), device=dev,
+                         lane_scale_idx=(0,), powerup="safe",
+                         powerup_samples=16, **PROD)
+        lv = np.linspace(0.1, 2.0, 128)[:, None]
+        _, st, _ = fr._powerup_runner().run(u_time[:, :16], lv)
+        ut = u_time[:, 16:24]
+    u, lvt, tol, gate = fr.prepare_inputs(ut, lv)
+    args = (fr.plan, u, lvt, tol, gate, st, fr._coef_tables(len(lv)))
+    before = sum(F.LAUNCHES.values())
+    got = F.fused_step(*args)
+    assert sum(F.LAUNCHES.values()) == before + 1
+    _bit_for_bit(got, F.plain_run(*args))
+    if path == "main":
+        its = got[3].cpu().numpy()
+        assert (its[:, 3] > np.delete(its, 3, axis=1).max(axis=1)).any()

@@ -20,12 +20,18 @@ the kernel's per-lane step lane by lane.  Against the plain torch version:
 * a build that couples lane groups (each lane of a group on a thread of
   its own, meeting the others at every keep test), two groups of 1024:
   bit for bit in y, state, fails, floored and iters (both sides round
-  the float64 exp on the CPU).
+  the float64 exp on the CPU);
+* of the whole steps above, the Super Over from its seeds (the main
+  path's build) and the un-decomposed Super Over's two builds are held
+  bit for bit in y, state, fails, floored and iters rather than at
+  -90 dB, the main path's also with a lane that takes the redo ladder
+  beside lanes that do not.
 
 Skipped where g++ is absent.  A kernel logic fault shows here before any
 time on the card is spent.
 """
 
+import copy
 import os
 import shutil
 
@@ -183,18 +189,53 @@ def test_step_birdie_pot_lanes(host_lib):
              np.linspace(0.05, 0.95, 128)[:, None], fr.initial_state(128))
 
 
-def test_step_superover_from_seeds(host_lib):
+@pytest.fixture(scope="module")
+def superover():
+    """The main path's model, built once (each runner centres its own
+    copy)."""
+    return M.superover_model(drive=None, tone=None, level=1.0,
+                             vb_source=True)
+
+
+def _main_runner(model):
+    return FusedRunner(copy.deepcopy(model), lane_input_idx=(1, 2),
+                       powerup="steady", **PROD, device="cpu")
+
+
+def _seeds(fr, lanes):
+    return load_steady_seed(os.path.join(ROOT, ".steadyseed_cache.npz"),
+                            "seed2_pots_chain_fs44100_L4096", fr, lanes=lanes)
+
+
+def test_step_superover_from_seeds(host_lib, superover):
+    """The main path's production build from the committed seeds: bit for
+    bit as the plain version in y, state, fails, floored and iters."""
     _, out = host_lib
-    m = M.superover_model(drive=None, tone=None, level=1.0, vb_source=True)
-    fr = FusedRunner(m, lane_input_idx=(1, 2), powerup="steady", **PROD,
-                     device="cpu")
+    fr = _main_runner(superover)
     lanes = np.array([0, 451, 2048, 3224, 3306, 4095] + list(range(
         700, 4096, 400)))
-    state = load_steady_seed(os.path.join(ROOT, ".steadyseed_cache.npz"),
-                             "seed2_pots_chain_fs44100_L4096", fr,
-                             lanes=lanes)
     lv = S.lane_grid("pots", 4096)[3][lanes]
-    _compare(load_host(fr.plan, out), fr, _sine(0.2, 16), lv, state)
+    _bitwise(load_host(fr.plan, out), fr, _sine(0.2, 16), lv,
+             _seeds(fr, lanes))
+
+
+def test_step_lane_takes_the_redo(host_lib, superover):
+    """Eight neighbouring lanes of the main path, one of them (lane 3)
+    started off its steady point so that it takes the redo ladder (gated
+    Newton, homotopy, df rescue) while the others keep their fast path:
+    the build bit for bit as the plain version, the redo on lane 3
+    only."""
+    _, out = host_lib
+    fr = _main_runner(superover)
+    lanes = np.arange(1000, 1008)
+    state = _seeds(fr, lanes)
+    state["zw"][:, 3] *= 0.9
+    state["dzdp"][:, 3] = 0.0
+    its = _bitwise(load_host(fr.plan, out), fr, _sine(0.2, 4),
+                   S.lane_grid("pots", 4096)[3][lanes], state)[3]
+    others = np.delete(its.numpy(), 3, axis=1)
+    assert (others == others[:, :1]).all()
+    assert (its[:, 3].numpy() > others[:, 0]).any()
 
 
 def test_linear_model_without_subsystems(host_lib):
@@ -279,17 +320,26 @@ def test_step_presets_powerup_then_main(host_lib):
                        np.repeat(np.linspace(0.1, 2.0, 8), 3)[:, None])
 
 
-def test_step_full_powerup_then_main(host_lib):
+@pytest.fixture(scope="module")
+def full_model():
+    return S.build_model("level", "full")
+
+
+def test_step_full_powerup_then_main(host_lib, full_model):
     """The un-decomposed Super Over: one subsystem with nn 7, np 5 (a
     pivoted 7x7 df elimination with six right-hand columns, and the fold
-    loop), both builds."""
+    loop): the power-up sibling from cold, then the production build from
+    the state it left, each bit for bit as the plain version in y, state,
+    fails, floored and iters."""
     _, out = host_lib
-    fr = FusedRunner(S.build_model("level", "full"), lane_scale_idx=(0,),
-                     powerup="safe",
-                     **PROD, device="cpu")
+    fr = FusedRunner(copy.deepcopy(full_model), lane_scale_idx=(0,),
+                     powerup="safe", **PROD, device="cpu")
     assert fr.sub_fragile == [True] and fr.plan.subs[0]["fold"]
-    _powerup_then_main(out, fr, 0.2, np.linspace(0.1, 2.0, 16)[:, None],
-                       T_=8)
+    pr = fr._powerup_runner()
+    lv = np.linspace(0.1, 2.0, 16)[:, None]
+    state = _bitwise(load_host(pr.plan, out), pr, _sine(0.2, 8), lv,
+                     pr.initial_state(16))[1]
+    _bitwise(load_host(fr.plan, out), fr, _sine(0.2, 8), lv, state)
 
 
 @pytest.mark.parametrize("model,config", [("clipper", c) for c in CONFIGS]
@@ -317,7 +367,8 @@ def test_step_configurations(host_lib, model, config):
 
 def _bitwise(lib, fr, u_time, lane_values, state):
     """The host build against plain_run, bit for bit in y, state, fails,
-    floored and iters; returns the plain version's iters."""
+    floored and iters; returns the plain version's (y, state, fails,
+    iters, floored)."""
     u, lv, tol, gate = fr.prepare_inputs(u_time, lane_values)
     L = lv.shape[1]
     args = (fr.plan, u, lv, tol, gate, state, fr._coef_tables(L),
@@ -331,7 +382,7 @@ def _bitwise(lib, fr, u_time, lane_values, state):
                 assert torch.equal(h[k], p[k]), k
         else:
             assert torch.equal(h, p), name
-    return plain[3]
+    return plain
 
 
 @pytest.mark.parametrize("case", ["fast_step", "polish_only"])
@@ -356,7 +407,7 @@ def test_step_lane_groups_bitwise(host_lib, case):
                          **dict(kw, fast_verify=mode), device="cpu")
         assert fr.plan.verify_group == (mode == "group")
         its[mode] = _bitwise(load_host(fr.plan, out), fr, _sine(1.5, 48), lv,
-                             fr.initial_state(2048))
+                             fr.initial_state(2048))[3]
     moved = (its["group"] != its["merge"]).any(0)
     assert moved[:1024].any() and not moved[1024:].any()
 

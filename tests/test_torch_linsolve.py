@@ -4,7 +4,13 @@ seeded well- and ill-conditioned systems of size 1 to 5.
 
 The elimination is the same sequence of float32 operations in both, so
 the results must agree bit for bit (the JAX side runs eagerly, op by op).
+Beside them, the CUDA kernel's own elimination (``csrc/linsolve.cuh``,
+compiled for the host with g++; skipped without it) against this plain
+version on the systems where a decision is close: pivot ties, a zero
+pivot, singular systems, NaN and inf inputs, and unpivoted.
 """
+
+import shutil
 
 import numpy as np
 import pytest
@@ -14,7 +20,11 @@ import jax.numpy as jnp
 
 from acme_tpu.ops import dfmath as jdf
 from acme_tpu.ops.fused import _solve_rows as jax_solve_rows
+from acme_tpu_torch import FusedRunner
+from acme_tpu_torch import sweeps as S
+from acme_tpu_torch.models import diodeclipper_model
 from acme_tpu_torch.ops import dfmath as tdf
+from acme_tpu_torch.ops.build import load_host
 from acme_tpu_torch.ops.linsolve_tiny import solve_rows
 
 LANES = 64
@@ -106,3 +116,101 @@ def test_df_solve_resolves_ill_conditioned(n):
         got = np.array([X[i].hi[lane].item() + X[i].lo[lane].item()
                         for i in range(n)])
         assert np.max(np.abs(got - ref)) <= 1e-5 * np.max(np.abs(ref))
+
+
+# -- the kernel's elimination on the hard cases (csrc/linsolve.cuh) ----------
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    """The kernel's sources compiled for the host (any model's build holds
+    the solve entries)."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ not found")
+    out = str(tmp_path_factory.mktemp("acme_build"))
+    clip = FusedRunner(diodeclipper_model(), **S.PRODUCTION, device="cpu")
+    return load_host(clip.plan, out)
+
+
+# the sizes the host entry holds from 3 up (1 and 2 are closed forms): the
+# main path's fragile 5x5 with 1 + 2 columns, the full path's 7x7 with
+# 1 + 5
+HARD_SIZES = [(3, 1), (4, 1), (5, 1), (3, 3), (4, 3), (5, 3), (7, 6)]
+HARD_KINDS = ["ties", "zero_pivot", "nan", "unpivoted"]
+
+
+def hard_systems(kind, n, m, seed, count=LANES):
+    """(J (count, n, n), R (count, m, n)) float64: small integers, so that
+    pivot candidates tie and some systems are singular ("ties"); a zero
+    leading pivot, a zero column in every eighth system ("zero_pivot");
+    NaN and inf at random places of J and R ("nan"); seeded systems as
+    ``systems`` makes them ("unpivoted", solved without pivoting)."""
+    rng = np.random.default_rng(seed)
+    J, R = systems(n, 1e4, m, seed)
+    J, R = np.moveaxis(J, 2, 0)[:count], np.moveaxis(R, 2, 0)[:count]
+    if kind == "ties":
+        J = rng.integers(-2, 3, size=J.shape).astype(float)
+        R = rng.integers(-2, 3, size=R.shape).astype(float)
+    elif kind == "zero_pivot":
+        J[:, 0, 0] = 0.0
+        J[::8, :, n - 1] = 0.0
+    elif kind == "nan":
+        for a in (J, R):
+            hit = rng.random(a.shape) < 0.05
+            a[hit] = rng.choice([np.nan, np.inf, -np.inf], hit.sum())
+    return J, R
+
+
+def assert_same_bits(a, b):
+    """Every bit equal where a value is not NaN (signed zeros too), NaN at
+    the same places: which NaN an x86 operation returns depends on its
+    operands' order, which the compiler may choose; on the card every NaN
+    is the canonical one."""
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+    num = ~np.isnan(a)
+    np.testing.assert_array_equal(a[num].view(np.uint32),
+                                  b[num].view(np.uint32))
+
+
+@pytest.mark.parametrize("kind", HARD_KINDS)
+@pytest.mark.parametrize("n,m", HARD_SIZES)
+@pytest.mark.parametrize("use_df", [0, 1])
+def test_kernel_solve_hard_cases_bitwise(host_lib, use_df, n, m, kind):
+    """The kernel's elimination (float32 with one refinement sweep, or df
+    without, as the step runs them) against the plain ``solve_rows`` on
+    the same systems: every bit of X equal (signed zeros included; NaN
+    where NaN), through pivot ties, a zero pivot, singular systems, NaN
+    and inf inputs, and without pivoting."""
+    J, R = hard_systems(kind, n, m, seed=100 * use_df + 10 * n + m)
+    pivot = kind != "unpivoted"
+    refine = 1 - use_df
+    with np.errstate(invalid="ignore"):
+        Jh, Jl = _split(np.ascontiguousarray(J))
+        Rh, Rl = _split(np.ascontiguousarray(R))
+    Jl[~np.isfinite(Jh)] = 0.0
+    Rl[~np.isfinite(Rh)] = 0.0
+    count = J.shape[0]
+    Xh = np.zeros((count, m, n), np.float32)
+    Xl = np.zeros((count, m, n), np.float32)
+    ptr = lambda a: a.ctypes.data
+    with np.errstate(invalid="ignore"):
+        assert host_lib.acme_solve_host(
+            n, m, count, use_df, refine, int(pivot), ptr(Jh), ptr(Jl),
+            ptr(Rh), ptr(Rl), ptr(Xh), ptr(Xl)) == 0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    if use_df:
+        Jt = [[tdf.DF(t(Jh[:, i, j]), t(Jl[:, i, j])) for j in range(n)]
+              for i in range(n)]
+        Rt = [[tdf.DF(t(Rh[:, k, i]), t(Rl[:, k, i])) for i in range(n)]
+              for k in range(m)]
+        X = solve_rows(Jt, Rt, refine=0, pivot=pivot, xp=tdf)
+        want_h = np.stack([[x.hi.numpy() for x in row] for row in X])
+        want_l = np.stack([[x.lo.numpy() for x in row] for row in X])
+        assert_same_bits(Xl, np.moveaxis(want_l, 2, 0))
+    else:
+        Jt = [[t(Jh[:, i, j]) for j in range(n)] for i in range(n)]
+        Rt = [[t(Rh[:, k, i]) for i in range(n)] for k in range(m)]
+        X = solve_rows(Jt, Rt, refine=refine, pivot=pivot)
+        want_h = np.stack([[x.numpy() for x in row] for row in X])
+    assert_same_bits(Xh, np.moveaxis(want_h, 2, 0))
+    if kind in ("zero_pivot", "nan"):
+        assert not np.isfinite(Xh).all()
