@@ -2,9 +2,10 @@
 
 Both packages build the same ``DiscreteModel``, so what needs converting
 is what a runner carries per lane: its state, and for a multi-model runner
-its (hi, lo) coefficient tables.  The JAX package keeps them as
-(n, S, 128) arrays (lane l at [:, l // 128, l % 128]), the port as (n, L)
-tensors, the state under the same keys.
+its (hi, lo) coefficient tables.  The JAX package's fused runner keeps
+them as (n, S, 128) arrays (lane l at [:, l // 128, l % 128]), the port as
+(n, L) tensors, the state under the same keys.  The scan engine's state is
+``{"x": (L, nx), "warms": (WarmStart(p, z, dzdp), ...)}`` in both.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 from .ops.fused import _ZERO_FILLED, STATE_KEYS
 
 __all__ = ["state_from_jax", "state_to_jax", "coef_from_jax", "coef_to_jax",
-           "load_steady_seed"]
+           "load_steady_seed", "engine_state_from_jax", "engine_state_to_jax"]
 
 
 def _from_blocks(a, device):
@@ -86,3 +87,26 @@ def load_steady_seed(path, tag, runner, lanes=None):
         floors = floors[np.asarray(lanes)]
     runner._steady_floors = floors
     return state
+
+
+def engine_state_from_jax(state, device="cuda", dtype=torch.float64):
+    """A JAX scan-engine state (its arrays numpy or jax) as the port's:
+    tensors of ``dtype`` on ``device`` (the card unless the caller asks for
+    the CPU), the warm starts as the port's ``WarmStart``."""
+    from .ops.newton import WarmStart
+    T = lambda a: torch.as_tensor(np.array(a), dtype=dtype, device=device)
+    return {"x": T(state["x"]),
+            "warms": tuple(WarmStart(*(T(v) for v in w))
+                           for w in state["warms"])}
+
+
+def engine_state_to_jax(state, warm_type=None):
+    """The port's scan-engine state as numpy arrays, each warm start a
+    ``warm_type`` (the JAX package's ``acme_tpu.ops.newton.WarmStart``,
+    which its scan needs; by default the port's) of (p, z, dzdp)."""
+    from .ops.newton import WarmStart
+    warm_type = warm_type or WarmStart
+    N = lambda t: t.detach().cpu().numpy()
+    return {"x": N(state["x"]),
+            "warms": tuple(warm_type(*(N(v) for v in w))
+                           for w in state["warms"])}

@@ -32,7 +32,8 @@ import numpy as np
 from .dfmath import _const
 from .fused import _Var, _nz
 
-__all__ = ["model_header", "write_header", "op_counts"]
+__all__ = ["model_header", "write_header", "op_counts", "engine_layout",
+           "engine_header", "write_engine_header", "engine_op_counts"]
 
 
 def _f(v):
@@ -48,6 +49,18 @@ def _f(v):
 def _df(v):
     hi, lo = _const(v)
     return f"df({_f(hi)}, {_f(lo)})"
+
+
+def _r(v):
+    """A literal of the engine's real type R for the float64 ``v``: its
+    float64 value, rounded to R by the cast (as a weakly typed scalar
+    takes the array's type in numpy, JAX and torch)."""
+    v = float(v)
+    if v != v:
+        return "((R)NAN)"
+    if v in (float("inf"), float("-inf")):
+        return "((R)INFINITY)" if v > 0 else "((R)(-INFINITY))"
+    return f"((R){v.hex()})"
 
 
 # -- the recording namespace --------------------------------------------------
@@ -291,12 +304,23 @@ _DF = {"add": "df_add({a}, {b})", "sub": "df_add({a}, df_neg({b}))",
        "isfinite": "df_finite({a})"}
 
 
+# the float64 scan engine's physics, a template over its real type R
+# (float64 or float32; csrc/dense.cuh's e_* helpers)
+_REAL = dict(_F32, exp="e_exp({a})", expm1="e_expm1({a})",
+             tanh="e_tanh({a})", sqrt="e_sqrt({a})", abs="e_abs({a})",
+             sign="e_sign({a})", min="e_min({a}, {b})",
+             max="e_max({a}, {b})", isfinite="e_finite({a})")
+
+
 def _emit_fn(name, g, res, Jq, nq, mode):
     """C++ body of ``name(q, res, Jq)`` for one recorded subsystem; with
     ``res`` or ``Jq`` None, of ``name(q, Jq)`` or ``name(q, res)``, which
-    compute only the nodes that output needs."""
-    T = "df" if mode == "df" else "float"
-    tab = _DF if mode == "df" else _F32
+    compute only the nodes that output needs.  ``mode``: "f32" (float),
+    "df" (double-float pairs) or "real" (the engine's template over its
+    real type R, float64 or float32)."""
+    T = {"df": "df", "real": "R"}.get(mode, "float")
+    tab = {"df": _DF, "real": _REAL}.get(mode, _F32)
+    lit = _r if mode == "real" else _f
     outs = list(res or ()) + [i for row in Jq or () for i in row]
     live = _live(g, outs)
     lines = []
@@ -304,7 +328,7 @@ def _emit_fn(name, g, res, Jq, nq, mode):
 
     def ref(a, kind="v"):
         if isinstance(a, float):
-            return _df(a) if (mode == "df" and kind == "v") else _f(a)
+            return _df(a) if (mode == "df" and kind == "v") else lit(a)
         return names[a]
 
     for i, (op, args, kind) in enumerate(g.nodes):
@@ -314,7 +338,7 @@ def _emit_fn(name, g, res, Jq, nq, mode):
             names[i] = f"q[{args[0]}]"
             continue
         if op == "const":
-            names[i] = _df(args[0]) if mode == "df" else _f(args[0])
+            names[i] = _df(args[0]) if mode == "df" else lit(args[0])
             continue
         ct = "bool" if kind == "b" else T
         if op == "pow":
@@ -336,7 +360,7 @@ def _emit_fn(name, g, res, Jq, nq, mode):
                     cur = nxt
                     step += 1
             expr = expr_out if expr_out is not None else (
-                "df(1.0f)" if mode == "df" else "1.0f")
+                {"df": "df(1.0f)", "real": lit(1.0)}.get(mode, "1.0f"))
         elif op == "where":
             c, a, b = args
             a_, b_ = ref(a), ref(b)
@@ -357,7 +381,9 @@ def _emit_fn(name, g, res, Jq, nq, mode):
             lines.append(f"  Jq[{a * nq + c}] = {ref(row[c])};")
     sig = ", ".join([f"const {T}* q"] + [f"{T}* res"] * (res is not None)
                     + [f"{T}* Jq"] * (Jq is not None))
-    attr = "ACME_NOINLINE HD static" if mode == "df" else "HD static inline"
+    attr = {"df": "ACME_NOINLINE HD static",
+            "real": "template <class R> HD static inline"}.get(
+                mode, "HD static inline")
     return f"  {attr} void {name}({sig}) {{\n" + "\n".join(
         "  " + ln for ln in lines) + "\n  }\n"
 
@@ -680,10 +706,15 @@ def model_header(plan):
 def write_header(plan, build_dir):
     """Write the model header into ``build_dir``; returns its path.  The
     name carries a hash of the text, so equal models share one file."""
-    text = model_header(plan)
+    return _write(model_header(plan), build_dir, "acme_model")
+
+
+def _write(text, build_dir, prefix):
+    """Write ``text`` into ``build_dir`` as ``<prefix>_<hash>.cuh`` (once);
+    returns its path."""
     h = hashlib.sha256(text.encode()).hexdigest()[:16]
     os.makedirs(build_dir, exist_ok=True)
-    path = os.path.join(build_dir, f"acme_model_{h}.cuh")
+    path = os.path.join(build_dir, f"{prefix}_{h}.cuh")
     if not os.path.exists(path):
         tmp = f"{path}.{os.getpid()}.tmp"
         with open(tmp, "w") as f:
@@ -822,3 +853,114 @@ def op_counts(plan):
                        + coef(plan.fy_sp, plan.fy) + coef(plan.a_sp, plan.a)
                        + coef(plan.b_sp, plan.b) + coef(plan.c_sp, plan.c))
     return per_sample, per_eval
+
+
+# -- the float64 scan engine's header (csrc/scan.cu) ---------------------------
+
+def engine_layout(nx, nu, ny, subs):
+    """The layout of one lane's model block and state for the scan engine:
+    ``subs`` the (nn, np, nq) of each subsystem.  Every matrix row-major,
+    in the order a, b, c, x0, dy, ey, fy, y0, then per subsystem dq, eq,
+    fqprev, fq, pexp, q0; the state x, then per subsystem the warm start's
+    p, z and dz/dp (nn, np).  Returns {"mats": [(name, shape, offset)],
+    "nmat": the block's size, "subs": per subsystem a dict of its
+    offsets (matrices "m_*", warm start "s_*" after x, "off" in z),
+    "ns": the state's size, "nn_total"}."""
+    nnt = sum(nn for nn, _, _ in subs)
+    mats, off = [], 0
+
+    def put(name, shape):
+        nonlocal off
+        mats.append((name, shape, off))
+        off += int(np.prod(shape))
+        return mats[-1][2]
+
+    for name, shape in (("a", (nx, nx)), ("b", (nx, nu)), ("c", (nx, nnt)),
+                        ("x0", (nx,)), ("dy", (ny, nx)), ("ey", (ny, nu)),
+                        ("fy", (ny, nnt)), ("y0", (ny,))):
+        put(name, shape)
+    out, zoff, soff = [], 0, 0
+    for k, (nn, np_, nq) in enumerate(subs):
+        s = {"nn": nn, "np": np_, "nq": nq, "off": zoff}
+        for name, shape in (("dq", (np_, nx)), ("eq", (np_, nu)),
+                            ("fqprev", (np_, nnt)), ("fq", (nq, nn)),
+                            ("pexp", (nq, np_)), ("q0", (nq,))):
+            s["m_" + name] = put(f"{name}{k}", shape)
+        s["s_p"], s["s_z"], s["s_d"] = soff, soff + np_, soff + np_ + nn
+        soff += np_ + nn + nn * np_
+        zoff += nn
+        out.append(s)
+    return {"mats": mats, "nmat": off, "subs": out, "ns": nx + soff,
+            "nn_total": nnt}
+
+
+def engine_header(nx, nu, ny, subs, nls):
+    """The scan engine's header for a model of these sizes (``subs`` the
+    (nn, np, nq) of each subsystem, ``nls`` their element physics
+    ``nl(xp, q)``): the sizes, the layout of ``engine_layout`` and per
+    subsystem a struct with its sizes, offsets and physics, a template
+    over the real type R.  The matrices' values are not in it: they are
+    kernel arguments."""
+    lay = engine_layout(nx, nu, ny, subs)
+    off = {name: o for name, _, o in lay["mats"]}
+    o = ["// Generated by acme_tpu_torch/ops/emit.py for the scan engine.",
+         "#pragma once", '#include "dense.cuh"', "",
+         "namespace acme_engine {"]
+    o.append(f"constexpr int NX = {nx}, NU = {nu}, NY = {ny}, "
+             f"NNT = {lay['nn_total']}, NSUB = {len(subs)}, "
+             f"NS = {lay['ns']}, NMAT = {lay['nmat']};")
+    o.append("constexpr int " + ", ".join(
+        f"M_{n.upper()} = {off[n]}"
+        for n in ("a", "b", "c", "x0", "dy", "ey", "fy", "y0")) + ";")
+    for k, (s, nl) in enumerate(zip(lay["subs"], nls)):
+        o.append(f"struct ESub{k} {{")
+        o.append(f"  static constexpr int NN = {s['nn']}, NP = {s['np']}, "
+                 f"NQ = {s['nq']}, OFF = {s['off']}, IDX = {k};")
+        o.append(f"  static constexpr int S_P = {s['s_p']}, "
+                 f"S_Z = {s['s_z']}, S_D = {s['s_d']};")
+        o.append("  static constexpr int " + ", ".join(
+            f"M_{n.upper()} = {s['m_' + n]}"
+            for n in ("dq", "eq", "fqprev", "fq", "pexp", "q0")) + ";")
+        g, res, Jq = record(nl, s["nq"])
+        o.append(_emit_fn("nl", g, res, Jq, s["nq"], "real"))
+        o.append("};")
+    o.append("}  // namespace acme_engine")
+    subs_ = " ".join(f"F(acme_engine::ESub{k})" for k in range(len(subs)))
+    o.append(f"#define ACME_ENGINE_FOR_EACH_SUB(F) {subs_}")
+    return "\n".join(o) + "\n"
+
+
+def write_engine_header(text, build_dir):
+    """Write an engine header's ``text`` into ``build_dir``; returns its
+    path (named by a hash of the text)."""
+    return _write(text, build_dir, "acme_engine")
+
+
+def _dense_ops(n, m):
+    """Float operations of Gaussian elimination on an n x n system with m
+    right-hand sides (2n^3/3 + 2n^2 m, the textbook count: a lower bound
+    of csrc/dense.cuh's, which updates every row at every step)."""
+    return (2 * n ** 3) // 3 + 2 * n * n * m
+
+
+def engine_op_counts(subs, nls, nx, nu, ny):
+    """Float operations of the scan engine: ``(per_sample, per_iter)``.
+    ``per_sample`` is the work every lane-sample does once: per subsystem
+    p, the extrapolated start, pfull and the origin's update at the
+    solution (one evaluation, Jq Pexp and an elimination with np
+    right-hand sides), and y and x'.  ``per_iter[k]`` is one Newton
+    iteration of subsystem k: q, the physics (every operation 1), J = Jq
+    Fq, max |res| and the elimination.  The measured iterations per
+    lane-sample times ``per_iter`` plus ``per_sample`` is a lower bound of
+    the kernel's work (homotopy steps add evaluations it does not count)."""
+    nnt = sum(nn for nn, _, _ in subs)
+    per_sample = 2 * (ny + nx) * (nx + nu + nnt) + ny + nx
+    per_iter = []
+    for (nn, np_, nq), nl in zip(subs, nls):
+        phys = _physics_ops({"nl": nl, "nq": nq}, False)
+        evaluation = 2 * nq * nn + phys + 2 * nn * nn * nq
+        per_iter.append(evaluation + nn + _dense_ops(nn, 1) + nn)
+        per_sample += (2 * np_ * (nx + nu + nnt) + np_ + 2 * nn * np_
+                       + 2 * nq * np_ + evaluation + 2 * nn * nq * np_
+                       + _dense_ops(nn, np_))
+    return per_sample, per_iter

@@ -2,12 +2,16 @@
 
     python3 chip_smoke.py            # the whole run (needs one CUDA card)
     python3 chip_smoke.py --scaling  # phases 1, 2 and 4s alone
+    python3 chip_smoke.py --engine   # the float64 scan engine's phases alone
     python3 chip_smoke.py --ab ROOT [ROOT ...]
                                      # the same windows of each checkout
                                      # ROOT in turns, bit for bit
 
 Phases, each printed with its seconds:
-  1. the device (name, power limit, torch / CUDA / nvcc versions);
+  1. the device (name, power limit, torch / CUDA / nvcc versions); from
+     here on, in two worker processes on the host, the float64 engine
+     path's steady seeds: all 4096 lanes of the main path's grid in one
+     batch, and its 18 parity lanes in a batch of their own;
   3. the models, built by the port's own compiler, the exact part of every
      Super Over build in a pool of worker processes: the main path's (the
      chain-decomposed Super Over with drive and tone as per-lane inputs,
@@ -30,8 +34,12 @@ Phases, each printed with its seconds:
      path (the main path's model under docs/tpu.md's quick-start with
      ``fast_iters=1``, the JAX defaults otherwise: lane groups of 2048,
      the build that couples them, ``VERIFY_GROUP``, and its twin with
-     ``fast_verify="merge"``); meanwhile, in worker processes on the
-     host, the presets path's float64 references;
+     ``fast_verify="merge"``); the float64 scan engine's builds
+     (``csrc/scan.cu`` with its engine header, each build both real
+     types): the main path's Super Over, the level Super Over, the
+     clipper (which also serves the float32 clipper and four clippers as
+     per-lane models: the matrices are kernel arguments); meanwhile, in
+     worker processes on the host, the presets path's float64 references;
   4. kernel against its plain torch version on the card: the diode
      clipper (128 lanes x 256 samples), birdie with its volume pot as a
      lane input (128 x 32), the Super Over (4096 x 32 from the seeds),
@@ -44,9 +52,15 @@ Phases, each printed with its seconds:
      at 4096 x 16 from the seeds in its runner's partition (two groups
      of 2048), in one group of 4096 and in four of 1024, each bit for
      bit in y, state, fails, floored and iters, then its merge twin, and
-     how many lanes' evaluations differ between the four (reported); a
-     kernel's time is the median of three launches queued behind a
-     warm-up launch;
+     how many lanes' evaluations differ between the four (reported); then
+     each engine build against its plain scan (``engine._plain_scan``, torch
+     ops on the card) at -180 dB of each lane's peak with ``converged``
+     equal: the clipper in float64 and float32 (128 x 256), four clippers
+     as per-lane models (x 256), the level Super Over from cold (4096 x
+     32), and once the seeds are there the main path's Super Over (4096 x
+     32 from them) and its split over ``(cuda:0, cuda:0)``, bit for bit as
+     unsplit; a kernel's time is the median of three launches queued
+     behind a warm-up launch;
   5. the main path: 4096 lanes x 44100 samples from the seeds, chained
      for seven windows as the JAX package's bench chains them, each timed
      whole and kernel alone; window 1 is scored against the committed
@@ -69,10 +83,11 @@ Phases, each printed with its seconds:
      the level path's protocol, scored on the 8 lanes the committed
      "scan2_level_full" references cover (windows 1 and 4);
   5e. the ablation path (``acme_tpu_torch.ablate``'s protocol at full
-     width): the level path's model, lanes and input; one power-up
-     window with the ablation's base configuration, then for each row
-     (``ablate.ROWS``) one warm window and three timed chained windows
-     from that state; its RT-factor per lane, fails, evaluations per
+     width, its depth cut): the level path's model, lanes and input; one
+     power-up window with the ablation's base configuration, then for
+     each row (``ablate.ROWS``) one warm window and two timed chained
+     windows (ablate.py's three, cut to ABLATION_REPS for phase 5i's
+     time) from that state; its RT-factor per lane, fails, evaluations per
      sample, dB against the base, and window 4 (the second timed) scored
      against the level path's "_st" references; base and cf2 held to
      the level path's gate, every output held finite, the others
@@ -103,12 +118,28 @@ Phases, each printed with its seconds:
      group grid of at least twice as many lanes (the main path's lanes
      and seeds tiled, 16 samples) in one call, which launches batches of
      whole groups, bit for bit as its groups run one at a time;
+  5i. the float64 scan engine's path, the protocol that made the
+     committed references (bench.py:127-146) on the card at full width:
+     the main path's Super Over at tol 1e-12 from the 4096-lane steady
+     seeds, seven chained 1-s windows of ``run_sweep`` (ms per window and
+     kernel ms, RT-factor per lane, Msamples/s, Newton iterations per
+     lane-sample, non-converged lane-samples), window 1 scored against
+     "_pw" and window 7 against "_st" on the 18 parity lanes (worst
+     <= -110 dB, median <= -120 dB); the same lanes' window 1 from seeds
+     computed in a batch of their own; the fused main path's windows 1
+     and 7 against the engine's on all 4096 lanes (worst lane with its
+     drive and tone, and the median; reported); then the level sweep's
+     window 1 through ``run`` from cold ((4096, 1, 44100) per-lane input)
+     against the level "_pw" references, the same gates; and one window
+     of each clipper build through its ``run``;
   6. the kernel launch counts of each path, by build (library).
 The "kernels" line has one entry per build: the main path's, the
 production and power-up builds of the level, presets and full paths, each
 ablation build (the level path's production build is also the ablation's
 cf2) and its power-up build, the two verdict tiers' builds, and the
-groups path's two.
+groups path's two; then one per engine build and real type (the main
+path's Super Over, the level Super Over, the clipper in float64 and in
+float32, four clippers as per-lane models).
 Each kernel's bound (the least time the card could take for the same
 work) is the larger of its float operations, counted from the generated
 code and the build's configuration (``ops.emit.op_counts``: its
@@ -118,7 +149,13 @@ outputs written once) over the card's memory rate.
 The last line is {"ok": true, "device": {...}}; any failed phase exits
 nonzero before it.
 
-Two measurements run alone, with no result line:
+The engine's bound is the larger of its float operations
+(``CompiledModel.op_counts``: each lane-sample's fixed work and each Newton
+iteration's, times the iterations the run measured) over the H100's
+float64 peak (float32 for the float32 build) and its bytes over the
+memory rate.
+
+Three measurements run alone, with no result line:
   4s. ``--scaling``: the main path's production build and the full
      path's at 4096, 8192, 16384 and 32768 lanes (the 4096 lanes' values
      and state tiled: the main path's from the seeds over 4096 samples,
@@ -126,6 +163,9 @@ Two measurements run alone, with no result line:
      one launch each: kernel ms, aggregate lane-samples per second, and
      the first 4096 lanes bit for bit as the 4096-lane launch; ptxas's
      numbers and the SASS size of each build;
+  engine. ``--engine``: phases 1-3 for the engine alone (the main and
+     level Super Overs, the engine builds and the seeds' workers), phase
+     4's engine rows and phase 5i without the fused comparison;
   ab. ``--ab ROOT [ROOT ...]``: for each checkout of the repo in the order
      given (a checkout named twice runs twice: parent, change, change,
      parent), a process of its own (``--windows ROOT``) that builds that
@@ -218,9 +258,26 @@ SCALING_SAMPLES = 4096
 AB_MAIN_WINDOWS = 2
 # nvcc processes at a time
 BUILD_WORKERS = 12
+# the float64 scan engine: the references' tolerance and the seeds'
+# (bench.py:127-146); its kernel held to its plain version at this dB of
+# each lane's peak; its path's parity gates against the committed float64
+# references (stored as float32: about -135 dB is their own floor)
+ENGINE_TOL = 1e-12
+ENGINE_SEED_TOL = 1e-9
+ENGINE_KERNEL_DB = -180.0
+ENGINE_PARITY_WORST_DB = -110.0
+ENGINE_PARITY_MEDIAN_DB = -120.0
+# phase 4's engine checks: the main path's model from the seeds and the
+# level model from cold, each 4096 lanes x this many samples
+ENGINE_CHECK_SAMPLES = 32
+ENGINE_LEVEL_CHECK_SAMPLES = 32
+# the ablation's timed windows per row (ablate.REPS is 3; cut to 2 for the
+# engine's phases, keeping window 4, the second timed one, which is scored)
+ABLATION_REPS = 2
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W): float32
 # outside the tensor cores, and device memory
 PEAK_FP32 = 67e12
+PEAK_FP64 = 34e12
 PEAK_BYTES = 3.35e12
 
 
@@ -839,7 +896,7 @@ def describe(name, m, fr, secs):
 def ablation_path(label, abl, base_pu, u, lane_values, lanes, keys, card,
                   torch, F, ablate, op_counts):
     """Phase 5e: the base's power-up window, then every row's warm window
-    and three timed windows from that state (``ablate.measure``), each
+    and ABLATION_REPS timed windows from that state (``ablate.measure``), each
     launch timed alone, with the bound of the last.  Returns ({row: its
     numbers}, the launch counts by build)."""
     F.LAUNCHES.clear()
@@ -848,7 +905,8 @@ def ablation_path(label, abl, base_pu, u, lane_values, lanes, keys, card,
     out, y_base = {}, None
     for name, fr in abl.items():
         n0 = len(F.LAUNCH_EVENTS)
-        r = ablate.measure(fr, u, lane_values, state0, keep=lanes)
+        r = ablate.measure(fr, u, lane_values, state0, reps=ABLATION_REPS,
+                           keep=lanes)
         k_ms = [a.elapsed_time(b) for a, b in F.LAUNCH_EVENTS[n0:]]
         y = r.pop("y")
         if name == "base":
@@ -890,12 +948,523 @@ def ablation_path(label, abl, base_pu, u, lane_values, lanes, keys, card,
     return out, launches
 
 
+
+# -- the float64 scan engine (phases 2, 4 and 5i) ----------------------------
+
+def engine_seeds(lanes=None):
+    """The main path's steady seeds, computed on the host as the JAX
+    bench's references were (``compile_model(model, tol=1e-9)
+    .steady_initial_state(lane_values, (1, 2))``) over the lanes ``lanes``
+    of the 4096-lane grid (None: all of them, one batch).  Runs in a worker
+    process (it builds its own model: a DiscreteModel does not pickle);
+    returns (x, [(p, z, dzdp) per subsystem], seconds) as numpy arrays."""
+    import torch
+    from acme_tpu_torch import sweeps as S
+    from acme_tpu_torch.engine import compile_model
+    t0 = time.time()
+    m = S.build_model("pots", "chain", FS)
+    _, _, _, lane_values, _ = S.lane_grid("pots", L_MAIN)
+    if lanes is not None:
+        lane_values = lane_values[list(lanes)]
+    torch.set_num_threads(1)
+    st = compile_model(m, tol=ENGINE_SEED_TOL, device="cpu") \
+        .steady_initial_state(lane_values, (1, 2))
+    return (st["x"].numpy(), [tuple(v.numpy() for v in w)
+                              for w in st["warms"]], time.time() - t0)
+
+
+def engine_state(seeds, dev, torch):
+    """``engine_seeds``' arrays as an engine state on ``dev``."""
+    from acme_tpu_torch.ops.newton import WarmStart
+    D = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+    x, warms, _ = seeds
+    return {"x": D(x), "warms": tuple(WarmStart(*(D(v) for v in w))
+                                      for w in warms)}
+
+
+def engine_bound(cm, src, L, T, iters, torch):
+    """(ms, "operations" | "bytes"): the least time the card could take
+    for the engine's run of L lanes x T samples that needed ``iters``
+    (T, L, nsub) Newton iterations: its float operations
+    (``cm.op_counts()``: every lane-sample's fixed work plus each
+    iteration's) over the card's float64 (float32) peak, or its bytes
+    (model blocks, inputs, state in and out, y, converged, iters) over the
+    memory rate."""
+    per_sample, per_iter = cm.op_counts()
+    its = iters.double().sum(dim=(0, 1)).cpu().numpy()
+    ops = L * T * per_sample + sum(float(n) * o for n, o in zip(its,
+                                                                per_iter))
+    f64 = cm.dtype == torch.float64
+    r = 8 if f64 else 4
+    inputs = sum(t.numel() for t in (src.ut, src.ul, src.lv)
+                 if t is not None)
+    nbytes = r * (cm._blocks.numel() + inputs + 2 * L * cm._layout["ns"]
+                  + T * L * cm.ny) + T * L * (1 + 4 * cm.nsub)
+    t_ops = ops / (PEAK_FP64 if f64 else PEAK_FP32)
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), \
+        ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def engine_case(name, cm, src, state, T, torch, E):
+    """The engine's kernel (``cm._scan`` on the card) against its plain
+    version (``cm._plain_scan``) on the same CUDA tensors: y within
+    ENGINE_KERNEL_DB of each lane's peak and converged equal, or fail;
+    bit-identity and iterations reported.  A kernel's time is the median
+    of CHECK_LAUNCHES launches queued behind a warm-up launch.  Returns
+    the numbers it printed."""
+    L = state["x"].shape[0]
+    E.LAUNCH_EVENTS = []
+    for _ in range(1 + CHECK_LAUNCHES):
+        sk, (yk, ck, ik) = cm._scan(state, src, T)
+    torch.cuda.synchronize()
+    ms_k = float(np.median([a.elapsed_time(b)
+                            for a, b in E.LAUNCH_EVENTS[1:]]))
+    E.LAUNCH_EVENTS = None
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    sp, (yp, cp, ip) = cm._plain_scan(state, src, T, cm._mats())
+    e1.record()
+    torch.cuda.synchronize()
+    ms_p = e0.elapsed_time(e1)
+    if not bool(torch.isfinite(yk).all()):
+        raise SmokeFailure(f"{name}: engine kernel output not finite")
+    err = (yk - yp).abs().amax(dim=(0, 2)).double()
+    peak = yp.abs().amax(dim=(0, 2)).double().clamp(min=1e-30)
+    db = (20 * torch.log10(err / peak + 1e-300)).cpu().numpy()
+    worst = int(np.argmax(db))
+    same = bool(torch.equal(yk, yp)) and all(
+        torch.equal(a, b) for a, b in zip(
+            [sk["x"]] + [v for w in sk["warms"] for v in w],
+            [sp["x"]] + [v for w in sp["warms"] for v in w]))
+    conv_eq = bool(torch.equal(ck, cp))
+    iters_eq = bool(torch.equal(ik, ip))
+    b_ms, b_by = engine_bound(cm, src, L, T, ik, torch)
+    max_abs = float((yk - yp).abs().max())
+    log(f"  {name}: L={L} T={T}  kernel {ms_k:.3f} ms, plain {ms_p:.3f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by})  "
+        f"{'bit-identical' if same else 'NOT bit-identical'} (iters "
+        f"{'equal' if iters_eq else 'differ'})  y worst lane {worst}: "
+        f"{db[worst]:.1f} dB (median {np.median(db):.1f}), max|dy| "
+        f"{max_abs:.3e}  converged {'equal' if conv_eq else 'DIFFER'}, "
+        f"non-converged lane-samples {int((~ck).sum())}  Newton iterations "
+        f"per lane-sample {float(ik.double().sum(-1).mean()):.3f}")
+    bad = []
+    if db[worst] > ENGINE_KERNEL_DB:
+        bad.append(f"y {db[worst]:.1f} dB > {ENGINE_KERNEL_DB}")
+    if not conv_eq:
+        bad.append("converged differs")
+    if bad:
+        raise SmokeFailure(f"{name}: engine kernel disagrees with plain: "
+                           f"{bad}")
+    return dict(ms=ms_k, plain_ms=ms_p, max_abs_err=max_abs, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def engine_split(cm, u_time, lane_values, state, card, torch, E):
+    """The main path's engine over the mesh ``(cuda:0, cuda:0)`` (two
+    entries of 2048 lanes, each launched on a stream of its own, gathered
+    on the card) against the unsplit run from the same state: bit for bit
+    in y, state, converged and iters; kernel ms per entry."""
+    from acme_tpu_torch.parallel import sharded_run_sweep
+    dev = cm.device
+    E.LAUNCH_EVENTS = []
+    whole = cm.run_sweep(u_time, lane_values, (1, 2), state=state)
+    split = sharded_run_sweep(cm, u_time, lane_values, (1, 2), (dev, dev),
+                              state=state)
+    torch.cuda.synchronize()
+    (a, b), *entries = E.LAUNCH_EVENTS
+    E.LAUNCH_EVENTS = None
+    (yw, sw, iw), (ys, ss, is_) = whole, split
+    leaves = lambda s: [s["x"]] + [v for w in s["warms"] for v in w]
+    bad = [] if torch.equal(yw, ys) else ["y"]
+    bad += ["state"] * (not all(torch.equal(p, q) for p, q in
+                                zip(leaves(sw), leaves(ss))))
+    bad += [n for n, p, q in (("converged", iw.converged, is_.converged),
+                              ("iters", iw.iters, is_.iters))
+            if not torch.equal(p, q)]
+    log(f"  engine split over (cuda:0, cuda:0): {lane_values.shape[0]} lanes "
+        f"x {u_time.shape[1]} samples, kernel per entry "
+        f"{' | '.join(f'{x.elapsed_time(y):.3f}' for x, y in entries)} ms "
+        f"against one launch of {a.elapsed_time(b):.3f} ms; "
+        + ("bit for bit as unsplit in y, state, converged and iters"
+           if not bad else f"NOT bit for bit: {bad}") + f" | card: {card}")
+    if bad:
+        raise SmokeFailure(f"engine split differs from unsplit in {bad}")
+
+
+def engine_window_rows(label, rows, L, card):
+    """Print each window of an engine drive: (ms, kernel ms, RunInfo,
+    T, bound)."""
+    for w, (ms, k_ms, info, T, b) in enumerate(rows):
+        its = info.iters.double()
+        log(f"[{label}] window {w + 1}: {L} lanes x {T} samples {ms:.1f} ms "
+            f"(kernel {k_ms:.1f} ms, outside it {ms - k_ms:.1f} ms = "
+            f"{100 * (ms - k_ms) / ms:.2f} %) | RT-factor per lane "
+            f"{(T / FS) / (ms / 1e3):.3f}x | "
+            f"{L * T / (ms / 1e3) / 1e6:.3f} Msamples/s | Newton iterations "
+            f"per lane-sample {float(its.sum(-1).mean()):.3f} (per "
+            f"subsystem {[round(float(v), 3) for v in its.mean((0, 1))]}) | "
+            f"non-converged lane-samples {int((~info.converged).sum())} | "
+            f"bound {b[0]:.3f} ms ({b[1]}) | card: {card}")
+
+
+def engine_drive(cm, call, windows, keep, torch, E):
+    """``windows`` chained calls ``call(state) -> (y, state, info)``, each
+    timed whole (CUDA events) and its launch alone; keeps window 1's and
+    the last window's y (whole, on the card) when ``keep``.  The launch
+    counts are set to 0 just before and read just after.  Returns (rows,
+    y of window 1, y of the last window, launch counts, the last state)."""
+    E.LAUNCHES.clear()
+    E.LAUNCH_EVENTS = []
+    rows, y1, y_last, state = [], None, None, None
+    for w in range(windows):
+        n0 = len(E.LAUNCH_EVENTS)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        e0.record()
+        y, state, info = call(state)
+        e1.record()
+        torch.cuda.synchronize()
+        k_ms = sum(a.elapsed_time(b) for a, b in E.LAUNCH_EVENTS[n0:])
+        rows.append([e0.elapsed_time(e1), k_ms, info, y.shape[-1]])
+        if not bool(torch.isfinite(y).all()):
+            raise SmokeFailure(f"engine window {w + 1}: non-finite output")
+        if keep and w == 0:
+            y1 = y
+        if keep and w == windows - 1:
+            y_last = y
+        del y
+    launches = dict(E.LAUNCHES)
+    E.LAUNCH_EVENTS = None
+    return rows, y1, y_last, launches, state
+
+
+def engine_score(label, lanes, descs, keys, ys, torch, worst_db, median_db):
+    """bench.py's scoring of engine windows: each lane's max error over the
+    peak of its steady ("_st") reference; ``ys`` {suffix: y (L, 1, T) on
+    the card}.  Gates: worst and median of each window.  Returns
+    {suffix: (dB per lane)}."""
+    out = {}
+    with np.load(os.path.join(HERE, ".hostref_cache.npz")) as cache:
+        for suffix, y in ys.items():
+            yl = y[list(lanes), 0].cpu().numpy()
+            dbs = []
+            for j, key in enumerate(keys):
+                ref = cache[key + suffix].astype(np.float64)
+                scale = max(float(np.abs(cache[key + "_st"]).max()), 1e-12)
+                dbs.append(20 * np.log10(float(np.abs(yl[j] - ref).max())
+                                         / scale + 1e-300))
+            out[suffix] = dbs
+    for j, (i, desc) in enumerate(zip(lanes, descs)):
+        log(f"    parity lane {i} ({desc}): " + ", ".join(
+            f"{suffix} {out[suffix][j]:.1f} dB" for suffix in out))
+    bad = []
+    for suffix, dbs in out.items():
+        worst, med = max(dbs), float(np.median(dbs))
+        j = int(np.argmax(dbs))
+        log(f"[{label}] parity {suffix} vs the committed float64 references: "
+            f"worst {worst:.1f} dB (lane {lanes[j]}, {descs[j]}), median "
+            f"{med:.1f} dB over {len(dbs)} lanes")
+        if worst > worst_db or med > median_db:
+            bad.append(f"{suffix} worst {worst:.1f} (lane {lanes[j]}, "
+                       f"{descs[j]}) / median {med:.1f} dB")
+    if bad:
+        raise SmokeFailure(f"{label}: parity outside {worst_db} / "
+                           f"{median_db} dB: {bad}")
+    return out
+
+
+def fused_vs_engine(label, y_fused, y_engine, scale_from, drive, tone,
+                    lanes, torch):
+    """A fused window (host float32, (L, T)) against the engine's same
+    window (card float64, (L, 1, T)) on every lane: each lane's max error
+    over the peak of the engine's ``scale_from`` window on that lane, in
+    dB; the worst lane with its drive and tone, the median, the same on
+    the parity lanes ``lanes`` (the bench's sample), and the worst and
+    median of each eighth of the drive range.  Reported, not gated."""
+    yf = torch.as_tensor(y_fused, device=y_engine.device).double()
+    err = (yf - y_engine[:, 0]).abs().amax(dim=1)
+    peak = scale_from[:, 0].abs().amax(dim=1).clamp(min=1e-12)
+    db = (20 * torch.log10(err / peak + 1e-300)).cpu().numpy()
+    w = int(np.argmax(db))
+    sample = db[list(lanes)]
+    log(f"[{label}] fused main path against the float64 engine over all "
+        f"{len(db)} lanes: worst {db[w]:.1f} dB (lane {w}, drive "
+        f"{drive[w]:.3f}, tone {tone[w]:.3f}), median {np.median(db):.1f} "
+        f"dB; lanes above -50 dB: {int((db > -50).sum())}, above -90 dB: "
+        f"{int((db > -90).sum())}; on the {len(sample)} parity lanes worst "
+        f"{sample.max():.1f}, median {np.median(sample):.1f} dB")
+    order = np.argsort(drive, kind="stable")
+    for part in np.array_split(order, 8):
+        log(f"    drive {drive[part].min():.3f}-{drive[part].max():.3f}: "
+            f"worst {db[part].max():.1f} dB, median "
+            f"{np.median(db[part]):.1f} dB over {len(part)} lanes")
+    return float(db[w]), float(np.median(db)), w
+
+
+
+CLIPPER_RS = (820.0, 1000.0, 1500.0, 4700.0)
+
+
+def engine_runners(m_so, m_lvl, dev, torch):
+    """The engine builds' runners: the main path's Super Over and the level
+    Super Over at the references' tolerance, the clipper in float64 and in
+    float32 (one build, two real types), and four clippers as per-lane
+    models (the clipper's build, its matrices per lane)."""
+    from acme_tpu_torch import DiscreteModel, resistor
+    from acme_tpu_torch.engine import compile_model, compile_models
+    from acme_tpu_torch.models import diodeclipper, diodeclipper_model
+
+    def clipper(r):
+        c = diodeclipper()
+        c.delete("r1")
+        c.add("r1", resistor(r))
+        c.connect(("r1", 1), ("j_in", "+"))
+        c.connect(("r1", 2), ("d1", "+"))
+        return DiscreteModel(c, 1 / FS)
+    return {"main": compile_model(m_so, tol=ENGINE_TOL, device=dev),
+            "level": compile_model(m_lvl, tol=ENGINE_TOL, device=dev),
+            "clipper": compile_model(diodeclipper_model(), device=dev),
+            "clipper f32": compile_model(diodeclipper_model(),
+                                         dtype=torch.float32, device=dev),
+            "four clippers": compile_models([clipper(r) for r in CLIPPER_RS],
+                                            device=dev)}
+
+
+def start_engine_builds(ex, engines, B):
+    """One nvcc per distinct engine header, started in ``ex``: {header:
+    (runner names, future of the library's path)}."""
+    builds = {}
+    for name, cm in engines.items():
+        if cm._header not in builds:
+            builds[cm._header] = ([], ex.submit(B.compile_engine, cm._header))
+        builds[cm._header][0].append(name)
+    return builds
+
+
+def log_engine_builds(builds, engines, B):
+    """Phase 2's lines for the engine builds: nvcc seconds, ptxas's
+    registers and frames (held under the launch's stack limit); then each
+    runner's library loaded."""
+    for names, fut in builds.values():
+        path = fut.result()
+        secs, out = B.LAST_BUILD.get(path, (0.0, "(cached)"))
+        frames = sum(int(b) for b in re.findall(r"(\d+) bytes stack frame",
+                                                out))
+        log(f"[2 build] engine {' = '.join(names)} (scan.cu, float64 and "
+            f"float32): nvcc {secs:.1f}s -> {os.path.basename(path)}; stack "
+            f"frames sum to {frames} of the launch's {B.STACK_BYTES} bytes")
+        for ln in out.splitlines():
+            if "Used" in ln or ("stack frame" in ln and not ln.strip()
+                                .startswith("0 bytes stack frame, 0 bytes")):
+                log(f"    ptxas: {ln.strip()}")
+        if frames > B.STACK_BYTES:
+            raise SmokeFailure(f"engine {names}: ptxas stack frames sum to "
+                               f"{frames} bytes, over {B.STACK_BYTES}")
+    for cm in engines.values():
+        cm._library()
+
+
+def engine_checks(eng, u, levels, torch, E):
+    """Phase 4's engine rows that need no seeds: the clipper (128 lanes x
+    256 samples of levels 0.1-3.0) in float64 and float32, four clippers
+    as per-lane models (x 256), the level Super Over from cold (4096 x
+    ENGINE_LEVEL_CHECK_SAMPLES, its per-lane input series)."""
+    from acme_tpu_torch.engine import _Src
+    Tc = 256
+    uc = np.sin(2 * np.pi * 1000 / FS * np.arange(Tc))
+    amps = np.linspace(0.1, 3.0, 128)
+    series = lambda cm, a: _Src(umap=tuple((2, i) for i in range(cm.nu)),
+                                ul=cm._as(a))
+    checks = {}
+    for name, label in (("clipper", "engine clipper (float64)"),
+                        ("clipper f32", "engine clipper (float32)")):
+        cm = eng[name]
+        checks[name] = engine_case(label, cm, series(
+            cm, amps[:, None, None] * uc[None, None]), cm.initial_state(128),
+            Tc, torch, E)
+    bm = eng["four clippers"]
+    checks["four clippers"] = engine_case(
+        "engine four clippers (per-lane models)", bm,
+        series(bm, np.tile(2.0 * uc, (len(CLIPPER_RS), 1, 1))),
+        bm.initial_state(), Tc, torch, E)
+    cl = eng["level"]
+    Tl = ENGINE_LEVEL_CHECK_SAMPLES
+    checks["level"] = engine_case(
+        "engine level Super Over (cold)", cl,
+        series(cl, levels[:, None, None] * u[None, :, :Tl]),
+        cl.initial_state(len(levels)), Tl, torch, E)
+    return checks
+
+
+def engine_clipper_runs(eng, torch, E):
+    """One window of each clipper build through its public ``run`` (128
+    input levels for the single model, one input for the per-lane models),
+    the launch counts set to 0 just before each and read just after."""
+    u = np.sin(2 * np.pi * 1000 / FS * np.arange(FS))
+    out = {}
+    for name, uu in (("clipper", np.linspace(0.1, 3.0, 128)[:, None, None]
+                      * u[None, None]),
+                     ("clipper f32", np.linspace(0.1, 3.0, 128)[:, None, None]
+                      * u[None, None]),
+                     ("four clippers", 2.0 * u[None])):
+        rows, _, _, launches, _ = engine_drive(
+            eng[name], lambda st, cm=eng[name], uu=uu: cm.run(uu), 1, False,
+            torch, E)
+        ms, k_ms, info, T = rows[0]
+        log(f"[5i engine {name}] one window: {tuple(info.converged.shape)} "
+            f"(samples, lanes) in {ms:.1f} ms (kernel {k_ms:.1f} ms), "
+            f"non-converged lane-samples {int((~info.converged).sum())}, "
+            f"launches {launches}")
+        out[name] = launches
+    return out
+
+
+def engine_path(eng, seed_state, seeds18, u, lane_values, drive, tone,
+                levels, fused, card, torch, E, S):
+    """Phase 5i: the protocol that made the committed references
+    (bench.py:127-146) on the card at full width.  The main path's model
+    at tol 1e-12 from the 4096-lane steady seeds, seven chained 1-s
+    windows of ``run_sweep`` (the 0.2-amplitude 1 kHz sine, drive and tone
+    per lane), window 1 scored against "_pw" and window 7 against "_st" on
+    the 18 parity lanes; the same lanes' window 1 from seeds computed in a
+    batch of their own; the fused main path's windows 1 and 7 (``fused``,
+    host float32, every lane) against the engine's over all 4096 lanes;
+    then the level sweep's window 1 through ``run`` from cold, (4096, 1,
+    44100) per-lane input, scored against the level "_pw" references.
+    Returns the launch counts of the main drive and of the level window,
+    and the numbers for PERF.md."""
+    from acme_tpu_torch.engine import _Src
+    cm = eng["main"]
+    L, T = lane_values.shape[0], u.shape[1]
+    ut, lv = cm._as(u), cm._as(lane_values)
+    src = cm._sweep_src(ut, lv, (1, 2))
+    rows, y1, y7, launches, _ = engine_drive(
+        cm, lambda st: cm.run_sweep(ut, lv, (1, 2),
+                                    state=seed_state if st is None else st),
+        WINDOWS, True, torch, E)
+    for r in rows:
+        r.append(engine_bound(cm, src, L, T, r[2].iters, torch))
+    engine_window_rows("5i engine path", rows, L, card)
+    lanes = S.select_parity_lanes(L_MAIN, 16, S.stress_lanes("pots", L_MAIN))
+    descs = [f"drive {drive[i]:.3f}, tone {tone[i]:.3f}" for i in lanes]
+    keys = [S.ref_key("pots", "chain", FS, T, MAIN_REPS, 1.0, drive[i],
+                      tone[i], powerup="steady") for i in lanes]
+    out = {"windows": [(r[0], r[1]) for r in rows]}
+    out["parity"] = engine_score("5i engine path", lanes, descs, keys,
+                                 {"_pw": y1, "_st": y7}, torch,
+                                 ENGINE_PARITY_WORST_DB,
+                                 ENGINE_PARITY_MEDIAN_DB)
+    # the seeds' batch: the ramp of steadystate_sweep starts from the
+    # lanes' mean, so the 18 lanes seeded alone start elsewhere
+    st18 = engine_state(seeds18, cm.device, torch)
+    x_all = seed_state["x"][list(lanes)]
+    dx = float((st18["x"] - x_all).abs().max())
+    y18, _, _ = cm.run_sweep(ut, lv[list(lanes)], (1, 2), state=st18)
+    with np.load(os.path.join(HERE, ".hostref_cache.npz")) as cache:
+        db18 = [20 * np.log10(float(np.abs(
+            y18[j, 0].cpu().numpy() - cache[k + "_pw"]).max())
+            / max(float(np.abs(cache[k + "_st"]).max()), 1e-12) + 1e-300)
+            for j, k in enumerate(keys)]
+    d_runs = (y18[:, 0] - y1[list(lanes), 0]).abs().amax(dim=1) \
+        / y7[list(lanes), 0].abs().amax(dim=1)
+    d_runs = (20 * torch.log10(d_runs + 1e-300)).cpu().numpy()
+    log(f"[5i engine path] the 18 parity lanes seeded as a batch of their "
+        f"own: seeds' x within {dx:.3e} of the 4096-lane batch's; window 1 "
+        f"against \"_pw\" worst {max(db18):.1f} dB, median "
+        f"{np.median(db18):.1f} dB; against the 4096-lane seeds' window 1 "
+        f"worst {d_runs.max():.1f} dB, median {np.median(d_runs):.1f} dB")
+    out["seed_batch"] = (dx, max(db18), float(np.median(db18)),
+                         float(d_runs.max()))
+    del y18
+    if fused is not None:
+        out["fused_w1"] = fused_vs_engine("5i fused vs engine, window 1",
+                                          fused[0], y1, y7, drive, tone,
+                                          lanes, torch)
+        out["fused_w7"] = fused_vs_engine(f"5i fused vs engine, window "
+                                          f"{WINDOWS}", fused[1], y7, y7,
+                                          drive, tone, lanes, torch)
+    del y1, y7
+    cl = eng["level"]
+    lvl_u = cl._as(levels)[:, None, None] * cl._as(u)[None]
+    lsrc = _Src(umap=((2, 0),), ul=lvl_u)
+    rows_l, yl1, _, launches_l, _ = engine_drive(
+        cl, lambda st: cl.run(lvl_u), 1, True, torch, E)
+    rows_l[0].append(engine_bound(cl, lsrc, L, T, rows_l[0][2].iters, torch))
+    engine_window_rows("5i engine level window", rows_l, L, card)
+    lanes_l = S.select_parity_lanes(L_MAIN, 16,
+                                    S.stress_lanes("level", L_MAIN))
+    out["level_window"] = (rows_l[0][0], rows_l[0][1])
+    out["level_parity"] = engine_score(
+        "5i engine level window", lanes_l,
+        [f"level {levels[i]:.4f}" for i in lanes_l],
+        [S.ref_key("level", "chain", FS, T, LEVEL_REPS, levels[i], 1.0, 1.0)
+         for i in lanes_l], {"_pw": yl1}, torch, ENGINE_PARITY_WORST_DB,
+        ENGINE_PARITY_MEDIAN_DB)
+    del yl1, lvl_u
+    return launches, launches_l, out
+
+
+def engine_entries(eng, checks, launches):
+    """The "kernels" line's engine entries: one per build and real type,
+    with the phase-4 numbers of its check and its launches on its drive."""
+    out = []
+    for key, name, drive in (
+            ("main", "scan (Super Over pots, float64, engine path)", "main"),
+            ("level", "scan (level Super Over, float64, engine path's level "
+             "window)", "level"),
+            ("clipper", "scan (clipper, float64)", "clipper"),
+            ("clipper f32", "scan (clipper, float32)", "clipper f32"),
+            ("four clippers", "scan (four clippers as per-lane models, "
+             "float64)", "four clippers")):
+        c = checks[key]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "acme_tpu_torch/ops/csrc/scan.cu",
+            "replaces": "acme_tpu/engine.py:247-279",
+            "launches": launches[drive].get(eng[key].launch_key(), 0),
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": None})
+    return out
+
+
+def engine_launch_checks(eng, launches, expected):
+    """Fail unless each engine drive launched its build's kernel exactly
+    as often as expected, and no other."""
+    for drive, n in expected.items():
+        want = {eng[drive].launch_key(): n}
+        log(f"[6 launches] engine {drive}: {launches[drive]}")
+        if launches[drive] != want:
+            raise SmokeFailure(f"engine {drive} launches {launches[drive]}, "
+                               f"expected {want}")
+
+
 def main():
     t_start = time.time()
     import torch
     if not torch.cuda.is_available():
         raise SmokeFailure("no CUDA device: this smoke run needs one GPU")
     sys.path.insert(0, HERE)
+    from acme_tpu_torch import sweeps as S
+    # the engine path's 4096-lane steady seeds (minutes of host numpy) and
+    # the 18 parity lanes' seeds in a batch of their own, in worker
+    # processes from the start; the pool is terminated on every exit
+    seed_pool = multiprocessing.get_context("spawn").Pool(2)
+    try:
+        seeds = (seed_pool.apply_async(engine_seeds),
+                 seed_pool.apply_async(engine_seeds, (S.select_parity_lanes(
+                     L_MAIN, 16, S.stress_lanes("pots", L_MAIN)),)))
+        return run_all(t_start, torch, seeds)
+    finally:
+        seed_pool.terminate()
+        seed_pool.join()
+
+
+def run_all(t_start, torch, seed_jobs):
+    """The whole run (``main``), the engine's seeds computing in
+    ``seed_jobs``."""
     from acme_tpu_torch import FusedRunner, ablate
     from acme_tpu_torch import sweeps as S
     from acme_tpu_torch.convert import load_steady_seed
@@ -903,6 +1472,7 @@ def main():
     from acme_tpu_torch.ops import build as B
     from acme_tpu_torch.ops import fused as F
     from acme_tpu_torch.ops.emit import model_header, op_counts
+    from acme_tpu_torch import engine as E
 
     dev = torch.device("cuda", 0)
     card = smi()
@@ -960,6 +1530,10 @@ def main():
     fr_full = FusedRunner(m_full, **cold, **lv_cfg)
     describe("un-decomposed Super Over (full)", m_full, fr_full,
              time.time() - t0)
+    t0 = time.time()
+    eng = engine_runners(copy.deepcopy(m_so_built), copy.deepcopy(m_lvl_built),
+                         dev, torch)
+    log(f"[3 model] engine runners {list(eng)} in {time.time() - t0:.1f}s")
 
     t0 = time.time()
     runners = {"clipper": fr_clip, "birdie": fr_bird, "superover": fr_so}
@@ -984,6 +1558,7 @@ def main():
     with ThreadPoolExecutor(BUILD_WORKERS) as ex, ProcessPoolExecutor(
             n_pre, mp_context=multiprocessing.get_context("spawn")) as pool:
         keys = {n: start(ex, n, r) for n, r in runners.items()}
+        eng_builds = start_engine_builds(ex, eng, B)
         # while nvcc runs: the presets path's float64 references, and the
         # runners of the step configurations, each build started as its
         # runner is ready
@@ -1072,6 +1647,7 @@ def main():
                                f"bytes, over the launch's {B.STACK_BYTES}")
     for r in runners.values():
         B.load_kernel(r.plan)
+    log_engine_builds(eng_builds, eng, B)
     log(f"[2 build] {len(libs)} builds for {len(runners)} runners, total "
         f"{time.time() - t0:.1f}s (parallel; beside them "
         f"{len(abl) + 1 + len(tiers) + len(groups) + len(meshed)} "
@@ -1138,16 +1714,22 @@ def main():
     checks["groups group"] = group_rows["group"]
     checks["groups merge"] = group_rows["merge"]
     log(f"[4 kernel vs plain] lane groups {time.time() - t0:.1f}s")
+    t0 = time.time()
+    eng_checks = engine_checks(eng, u, levels, torch, E)
+    log(f"[4 kernel vs plain] engine builds {time.time() - t0:.1f}s")
 
     t0 = time.time()
     lanes = S.select_parity_lanes(L_MAIN, 16, S.stress_lanes("pots", L_MAIN))
-    y_pw, y_st, main_launches, _, main_rows = drive_path(
-        "5 main path", fr_so, u, lane_values, seed, WINDOWS, lanes, card,
-        torch, F, op_counts, hold=MESH_WINDOWS)
+    # every lane's windows 1 and 7 kept, for phase 5i's whole-grid score
+    fused_main = drive_path(
+        "5 main path", fr_so, u, lane_values, seed, WINDOWS,
+        np.arange(L_MAIN), card, torch, F, op_counts, hold=MESH_WINDOWS)
+    y_pw, y_st, main_launches, _, main_rows = fused_main
+    fused_main = (y_pw, y_st)
     main_rows = main_rows[:MESH_WINDOWS]
     score("5 main path", lanes,
           [f"drive {drive[i]:.3f}, tone {tone[i]:.3f}" for i in lanes],
-          y_pw, y_st,
+          y_pw[lanes], y_st[lanes],
           [S.ref_key("pots", "chain", FS, T, MAIN_REPS, 1.0, drive[i],
                      tone[i], powerup="steady") for i in lanes],
           WINDOWS, PARITY_WORST_DB, PARITY_MEDIAN_DB)
@@ -1239,6 +1821,11 @@ def main():
     del main_rows, group_row
     log(f"[5h mesh] {time.time() - t0:.1f}s")
 
+    eng_launches = engine_tail(eng, eng_checks, seed_jobs, u, lane_values,
+                               drive, tone, levels, fused_main, card, torch,
+                               E, S)
+    del fused_main, y_pw, y_st
+
     # one entry per build: (name, runner key, the launch counts of the
     # path it runs on, how many of them are this build's)
     lib_of = {n: runners[n].plan.cuda_name for n in runners}
@@ -1254,12 +1841,14 @@ def main():
                         n + " powerup", launches, 1))
     if len({lib_of[k] for _, k, _, _ in entries}) != len(entries):
         raise SmokeFailure(f"the paths' builds share a library: {lib_of}")
-    # the ablation path: four windows per row; the base's build also runs
-    # the power-up window's production part, its power-up build the rest
+    # the ablation path: a warm window and ABLATION_REPS timed ones per
+    # row; the base's build also runs the power-up window's production
+    # part, its power-up build the rest
     rows_of = {}
     for name in abl:
         rows_of.setdefault(lib_of["ablation " + name], []).append(name)
-    abl_expected = {lib: 4 * len(rows) for lib, rows in rows_of.items()}
+    abl_expected = {lib: (1 + ABLATION_REPS) * len(rows)
+                    for lib, rows in rows_of.items()}
     abl_expected[lib_of["ablation base"]] += 1
     abl_expected[lib_of["ablation base powerup"]] = 1
     for lib, rows in rows_of.items():
@@ -1326,6 +1915,7 @@ def main():
             "max_abs_err": case["max_abs_err"], "ms": case["ms"],
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": None})
+    kernels += engine_entries(eng, eng_checks, eng_launches)
     log(f"[total] {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi())
@@ -1333,6 +1923,92 @@ def main():
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
 
+
+
+def engine_tail(eng, checks, seed_jobs, u, lane_values, drive, tone, levels,
+                fused, card, torch, E, S):
+    """The engine's phases that need the seeds: phase 4's rows for the main
+    path's model from the seeds and its split over (cuda:0, cuda:0), then
+    phase 5i (``engine_path``) and the clipper builds' windows.  Adds the
+    main row to ``checks``; returns the launch counts of each drive."""
+    t0 = time.time()
+    seeds = seed_jobs[0].get()
+    seeds18 = seed_jobs[1].get()
+    seed_state = engine_state(seeds, eng["main"].device, torch)
+    log(f"[5i engine path] steady seeds of {L_MAIN} lanes (host, a worker "
+        f"process since phase 1): {seeds[2]:.1f}s of host time; the 18 "
+        f"parity lanes alone: {seeds18[2]:.1f}s; waited {time.time() - t0:.1f}"
+        "s here")
+    t0 = time.time()
+    log(f"[4 kernel vs plain] engine builds from the seeds (card: {card})")
+    cm = eng["main"]
+    n = ENGINE_CHECK_SAMPLES
+    checks["main"] = engine_case(
+        "engine Super Over (seeds)", cm,
+        cm._sweep_src(cm._as(u[:, :n]), cm._as(lane_values), (1, 2)),
+        seed_state, n, torch, E)
+    engine_split(cm, u[:, :n], lane_values, seed_state, card, torch, E)
+    log(f"[4 kernel vs plain] engine from the seeds {time.time() - t0:.1f}s")
+    t0 = time.time()
+    main_l, level_l, _ = engine_path(eng, seed_state, seeds18, u,
+                                     lane_values, drive, tone, levels, fused,
+                                     card, torch, E, S)
+    launches = engine_clipper_runs(eng, torch, E)
+    launches.update(main=main_l, level=level_l)
+    log(f"[5i engine path] {time.time() - t0:.1f}s")
+    engine_launch_checks(eng, launches, {
+        "main": WINDOWS, "level": 1, "clipper": 1, "clipper f32": 1,
+        "four clippers": 1})
+    return launches
+
+
+def engine_main():
+    """``--engine``: phases 1-3 for the engine alone (the device, the main
+    path's and the level sweep's models, the engine builds), phase 4's
+    engine rows and phase 5i without the fused comparison; no result
+    line."""
+    t_start = time.time()
+    import torch
+    if not torch.cuda.is_available():
+        raise SmokeFailure("no CUDA device: this smoke run needs one GPU")
+    sys.path.insert(0, HERE)
+    from acme_tpu_torch import sweeps as S
+    seed_pool = multiprocessing.get_context("spawn").Pool(2)
+    try:
+        seeds = (seed_pool.apply_async(engine_seeds),
+                 seed_pool.apply_async(engine_seeds, (S.select_parity_lanes(
+                     L_MAIN, 16, S.stress_lanes("pots", L_MAIN)),)))
+        from acme_tpu_torch import engine as E
+        from acme_tpu_torch.ops import build as B
+        dev = torch.device("cuda", 0)
+        card = smi()
+        log(f"[1 device] {torch.cuda.get_device_name(0)} | nvidia-smi: "
+            f"{card} | torch {torch.__version__} CUDA {torch.version.cuda}")
+        t0 = time.time()
+        m_so, m_lvl = S.build_models([S.model_spec("pots", "chain", FS),
+                                      S.model_spec("level", "chain", FS)])
+        eng = engine_runners(m_so, m_lvl, dev, torch)
+        log(f"[3 model] main and level Super Over, engine runners "
+            f"{list(eng)} in {time.time() - t0:.1f}s")
+        t0 = time.time()
+        with ThreadPoolExecutor(BUILD_WORKERS) as ex:
+            builds = start_engine_builds(ex, eng, B)
+            log_engine_builds(builds, eng, B)
+        log(f"[2 build] {len(builds)} engine builds in "
+            f"{time.time() - t0:.1f}s")
+        _, drive, tone, lane_values, _ = S.lane_grid("pots", L_MAIN)
+        levels = S.lane_grid("level", L_MAIN)[0]
+        u = (0.2 * np.sin(2 * np.pi * 1000 / FS * np.arange(FS)))[None, :]
+        t0 = time.time()
+        log(f"[4 kernel vs plain] (card: {card})")
+        checks = engine_checks(eng, u, levels, torch, E)
+        log(f"[4 kernel vs plain] engine builds {time.time() - t0:.1f}s")
+        engine_tail(eng, checks, seeds, u, lane_values, drive, tone, levels,
+                    None, card, torch, E, S)
+        log(f"[total] {time.time() - t_start:.1f}s")
+    finally:
+        seed_pool.terminate()
+        seed_pool.join()
 
 def sass_size(path):
     """(instructions, bytes) of the kernel's SASS in library ``path``
@@ -1510,6 +2186,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--scaling"]:
             scaling_main()
+        elif sys.argv[1:2] == ["--engine"]:
+            engine_main()
         elif sys.argv[1:2] == ["--windows"]:
             windows_main(sys.argv[2])
         elif sys.argv[1:2] == ["--ab"]:

@@ -8,7 +8,10 @@ repo's root conftest.py imports jax, hence ``--noconftest``):
         tests/test_torch_cuda.py
 
 Bound as in tests/test_torch_fused.py: y within -90 dB of each lane's
-peak (bit-identical on the H100 so far), fails and floored equal.
+peak (bit-identical on the H100 so far), fails and floored equal.  The
+float64 scan engine's kernel (``csrc/scan.cu``) against its plain scan:
+y within -180 dB of each lane's peak, converged equal; its split over
+(cuda:0, cuda:0) bit for bit as unsplit.
 """
 
 import copy
@@ -321,3 +324,111 @@ def test_production_builds_bit_for_bit_on_card(path):
     if path == "main":
         its = got[3].cpu().numpy()
         assert (its[:, 3] > np.delete(its, 3, axis=1).max(axis=1)).any()
+
+
+# -- the float64 scan engine (csrc/scan.cu) -----------------------------------
+
+ENGINE_DB = -180.0
+
+
+def _engine_vs_plain(cm, src, state, T):
+    """One launch of the scan kernel against the plain scan on the same
+    CUDA tensors: y within ENGINE_DB of each lane's peak, converged equal
+    (bit-identical on the H100 so far)."""
+    from acme_tpu_torch import engine as E
+    before = sum(E.LAUNCHES.values())
+    sk, (yk, ck, ik) = cm._scan(state, src, T)
+    assert sum(E.LAUNCHES.values()) == before + 1
+    assert E.LAUNCHES[cm.launch_key()] >= 1
+    sp, (yp, cp, ip) = cm._plain_scan(state, src, T, cm._mats())
+    assert bool(torch.isfinite(yk).all())
+    err = (yk - yp).abs().amax(dim=(0, 2)).double()
+    peak = yp.abs().amax(dim=(0, 2)).double().clamp(min=1e-30)
+    assert float((20 * torch.log10(err / peak + 1e-300)).max()) < ENGINE_DB
+    assert torch.equal(ck, cp)
+    return yk, ck
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["clipper", "clipper_f32", "birdie",
+                                  "four_clippers", "nonconvergence"])
+def test_engine_matches_plain_on_card(case):
+    from acme_tpu_torch.engine import _Src, compile_model, compile_models
+    dev = _card()
+    series = lambda cm, a: _Src(umap=tuple((2, i) for i in range(cm.nu)),
+                                ul=cm._as(a))
+    s = np.sin(2 * np.pi * 1000 / FS * np.arange(256))
+    if case in ("clipper", "clipper_f32"):
+        cm = compile_model(diodeclipper_model(), device=dev,
+                           dtype=torch.float32 if case == "clipper_f32"
+                           else torch.float64)
+        src = series(cm, np.linspace(0.1, 3.0, 128)[:, None, None]
+                     * s[None, None])
+        state = cm.initial_state(128)
+    elif case == "birdie":
+        cm = compile_model(birdie_model(), device=dev)
+        src = cm._sweep_src(cm._as(0.3 * s[None]),
+                            cm._as(np.linspace(0.05, 0.95, 128)[:, None]),
+                            (1,))
+        state = cm.initial_state(128)
+    elif case == "four_clippers":
+        cm = compile_models([clipper_with_r1(r) for r in
+                             (820.0, 1000.0, 1500.0, 4700.0)], device=dev)
+        src = series(cm, np.tile(2.0 * s, (4, 1, 1)))
+        state = cm.initial_state()
+    else:
+        circ = T.Circuit()
+        circ.add("d", T.diode())
+        circ.add("src", T.currentsource())
+        circ.connect(("src", "+"), ("d", "+"))
+        circ.connect(("src", "-"), ("d", "-"))
+        circ.add("probe", T.voltageprobe())
+        circ.connect(("probe", "+"), ("d", "+"))
+        circ.connect(("probe", "-"), ("d", "-"))
+        cm = compile_model(T.DiscreteModel(circ, 1), device=dev)
+        src = series(cm, np.array([[[1.0, 1.0, -1.0, 0.5]],
+                                   [[-1.0, 1.0, 1.0, 1.0]]]))
+        state = cm.initial_state(2)
+    _, conv = _engine_vs_plain(cm, src, state, src.ul.shape[2]
+                               if src.ul is not None else 256)
+    if case == "nonconvergence":
+        assert not bool(conv.all()) and bool(conv.any())
+    else:
+        assert bool(conv.all())
+
+
+@pytest.mark.cuda
+def test_engine_superover_and_split_on_card():
+    """The chain Super Over at the references' tolerance from steady seeds
+    (4 lanes of the main path's grid, tiled to 128) x 64 samples against
+    the plain scan; then over the mesh (cuda:0, cuda:0), bit for bit as
+    unsplit."""
+    import copy
+    from acme_tpu_torch.engine import compile_model
+    from acme_tpu_torch.ops.newton import WarmStart
+    from acme_tpu_torch.parallel import sharded_run_sweep
+    dev = _card()
+    m = S.build_model("pots", "chain")
+    lv = S.lane_grid("pots", 4096)[3][[0, 1365, 3224, 4095]]
+    cm = compile_model(copy.deepcopy(m), tol=1e-12, device=dev)
+    seed = compile_model(copy.deepcopy(m), tol=1e-9, device="cpu") \
+        .steady_initial_state(lv, (1, 2))
+    tile = lambda v: v.repeat((32,) + (1,) * (v.dim() - 1)).to(dev)
+    state = {"x": tile(seed["x"]),
+             "warms": tuple(WarmStart(*(tile(v) for v in w))
+                            for w in seed["warms"])}
+    lv = np.tile(lv, (32, 1))
+    u = 0.2 * np.sin(2 * np.pi * 1000 / FS * np.arange(64))[None]
+    src = cm._sweep_src(cm._as(u), cm._as(lv), (1, 2))
+    _, conv = _engine_vs_plain(cm, src, state, 64)
+    assert bool(conv.all())
+    whole = cm.run_sweep(u, lv, (1, 2), state=state)
+    split = sharded_run_sweep(cm, u, lv, (1, 2), (dev, dev), state=state)
+    assert torch.equal(whole[0], split[0])
+    assert torch.equal(whole[2].iters, split[2].iters)
+    assert torch.equal(whole[2].converged, split[2].converged)
+    for a, b in zip([whole[1]["x"]] + [v for w in whole[1]["warms"]
+                                       for v in w],
+                    [split[1]["x"]] + [v for w in split[1]["warms"]
+                                       for v in w]):
+        assert torch.equal(a, b)

@@ -5,7 +5,10 @@ A subprocess whose meta-path finder refuses every ``jax``, ``acme_tpu`` and
 carries its own compiler) imports acme_tpu_torch and all its modules,
 builds the diode clipper with the port's compiler, runs the plain path on
 128 lanes x 32 samples with the level sweep's lane-scaled input and
-two-phase power-up, and checks that none of those modules was loaded.
+two-phase power-up, runs the float64 scan engine's plain version on it
+(``engine``, ``ops.newton``, ``ops.linsolve``) and checkpoints its state
+(``utils.checkpoint``), and checks that none of those modules was
+loaded.
 """
 
 import os
@@ -38,7 +41,11 @@ SCRIPT = textwrap.dedent("""
                                      "acme_tpu_torch."):
         __import__(mod.name)
     import acme_tpu_torch.ablate
+    import acme_tpu_torch.engine
+    import acme_tpu_torch.ops.linsolve
+    import acme_tpu_torch.ops.newton
     import acme_tpu_torch.parallel
+    import acme_tpu_torch.utils.checkpoint
     from acme_tpu_torch.models import diodeclipper_model
     from acme_tpu_torch.sweeps import PRODUCTION
     fr = acme_tpu_torch.FusedRunner(diodeclipper_model(),
@@ -50,6 +57,15 @@ SCRIPT = textwrap.dedent("""
     assert tuple(y.shape) == (128, 1, 32)
     assert bool(np.isfinite(y.numpy()).all())
     assert int(info.fails.sum()) == 0
+    import os, tempfile
+    cm = acme_tpu_torch.compile_model(diodeclipper_model(), device="cpu")
+    y, st, info = cm.run(u)
+    assert tuple(y.shape) == (1, 32) and bool(info.converged.all())
+    path = os.path.join(tempfile.mkdtemp(), "state.npz")
+    acme_tpu_torch.utils.checkpoint.save_state(path, st)
+    back = acme_tpu_torch.utils.checkpoint.load_state(path,
+                                                      cm.initial_state(1))
+    assert bool((back["x"] == st["x"]).all())
     loaded = [m for m in sys.modules if refused(m)]
     assert not loaded, loaded
     print("OK")
