@@ -5,7 +5,7 @@ over a lane axis: per sample the ordered subsystem chain (each subsystem's
 p depends on the z of the earlier ones in the same sample), each subsystem
 solved by the masked Newton + homotopy of ``ops.newton``.  Here the whole
 run loop is one launch of a hand-written CUDA kernel (``ops/csrc/scan.cu``,
-one thread per lane, the carry in the thread), built at first use for the
+one thread per lane, its carry in shared memory), built at first use for the
 model's sizes and element physics; the model matrices, the tolerance and
 the loop limits are its arguments, so one build serves a model at any
 tolerance and a batch of same-topology models (``compile_models``).  On
@@ -49,6 +49,9 @@ LAUNCH_EVENTS = None
 
 # newton.py's bound on the homotopy's steps
 MAX_HOMOTOPY_STEPS = 4096
+# the launch's code for a block that needs more shared memory than the card
+# gives one (csrc/scan.cu SMEM_TOO_LARGE)
+SMEM_TOO_LARGE = -2
 
 
 class RunInfo(NamedTuple):
@@ -362,8 +365,19 @@ class _Engine:
         if rc != 0:
             what = lib.acme_scan_cuda_error(rc).decode() \
                 if entry.startswith("acme_scan_launch") else "unknown"
+            if rc == SMEM_TOO_LARGE:
+                what += (f": {self.smem_bytes(lib, stride == 0)} bytes a "
+                         "block")
             raise RuntimeError(f"scan kernel failed: error {rc} ({what})")
         return s_out, (y[:, :, :self.ny], conv, iters[:, :, :self.nsub])
+
+    def smem_bytes(self, lib, shared_mats):
+        """Dynamic shared memory of one block of the kernel: its lanes'
+        carry, and the model block when every lane runs the one
+        (``shared_mats``, a CompiledModel; per-lane blocks stay in device
+        memory).  A launch whose need the card refuses raises."""
+        return int(lib.acme_scan_smem_bytes(int(self.dtype == torch.float64),
+                                            int(shared_mats)))
 
     def _kernel_scan(self, s_in, src, T, L, blocks):
         lib = self._library()

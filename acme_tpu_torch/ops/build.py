@@ -176,6 +176,8 @@ def _bind_engine(path, cuda):
     if cuda:
         lib.acme_scan_cuda_error.argtypes = [ctypes.c_int]
         lib.acme_scan_cuda_error.restype = ctypes.c_char_p
+    lib.acme_scan_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.acme_scan_smem_bytes.restype = ctypes.c_longlong
     lib.acme_dense_host.argtypes = [ctypes.c_int] * 4 + [_PTR] * 4
     lib.acme_dense_host.restype = ctypes.c_int
     return lib

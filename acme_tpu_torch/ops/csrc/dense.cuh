@@ -13,7 +13,11 @@
 // linsolve.cuh (row and column equilibration, refinement).
 //
 // Compiled with --fmad=false (nvcc) / -ffp-contract=off (g++), never with
-// fast math: the plain version rounds every product and sum apart.
+// fast math: the plain version rounds every product and sum apart.  Every
+// loop here is unrolled and every array indexed by constants only (the
+// pivot row swap is a select over the rows), so on the card the augmented
+// matrix stays in registers: a run-time index would put it in the thread's
+// local-memory frame.
 #pragma once
 
 #include <math.h>
@@ -24,6 +28,14 @@
 #else
 #define HD
 #endif
+#endif
+
+// a loop of constant trip count fully unrolled on the card (g++ unrolls as
+// it sees fit: nothing there depends on it)
+#ifdef __CUDACC__
+#define ACME_UNROLL _Pragma("unroll")
+#else
+#define ACME_UNROLL
 #endif
 
 namespace acme_engine {
@@ -86,19 +98,25 @@ HD inline bool solve_dense(const R (&J)[A1(N)][A1(N)],
     const R piv = J[0][0];
     const bool ok = piv != R(0) && e_finite(piv);
     const R safe = piv == R(0) ? R(1) : piv;
+    ACME_UNROLL
     for (int j = 0; j < M; ++j) X[0][j] = B[0][j] / safe;
     return ok;
   } else {
     constexpr int W = N + M;
     R A[N][W];
+    ACME_UNROLL
     for (int i = 0; i < N; ++i) {
+      ACME_UNROLL
       for (int j = 0; j < N; ++j) A[i][j] = J[i][j];
+      ACME_UNROLL
       for (int j = 0; j < M; ++j) A[i][N + j] = B[i][j];
     }
     bool ok = true;
+    ACME_UNROLL
     for (int k = 0; k < N; ++k) {
       int idx = k;
       R best = e_abs(A[k][k]);
+      ACME_UNROLL
       for (int i = k + 1; i < N; ++i) {
         const R v = e_abs(A[i][k]);
         if (!(best != best) && (v > best || v != v)) {
@@ -107,28 +125,42 @@ HD inline bool solve_dense(const R (&J)[A1(N)][A1(N)],
         }
       }
       ok = ok && best > R(0) && e_finite(best);
-      if (idx != k) {
-        for (int j = 0; j < W; ++j) {
-          const R t = A[k][j];
-          A[k][j] = A[idx][j];
-          A[idx][j] = t;
-        }
+      // swap rows k and idx: row k takes row idx's values, row idx row
+      // k's, each a select over the rows below k (the same moves as an
+      // indexed swap, with constant indices only)
+      ACME_UNROLL
+      for (int j = 0; j < W; ++j) {
+        const R rk = A[k][j];
+        R pick = rk;
+        ACME_UNROLL
+        for (int i = k + 1; i < N; ++i) pick = i == idx ? A[i][j] : pick;
+        ACME_UNROLL
+        for (int i = k + 1; i < N; ++i) A[i][j] = i == idx ? rk : A[i][j];
+        A[k][j] = pick;
       }
       const R piv = A[k][k];
       const R safe = piv == R(0) ? R(1) : piv;
       R rk[W], f[N];
+      ACME_UNROLL
       for (int j = 0; j < W; ++j) rk[j] = A[k][j];
+      ACME_UNROLL
       for (int i = 0; i < N; ++i) f[i] = i > k ? A[i][k] / safe : R(0);
-      for (int i = 0; i < N; ++i)
+      ACME_UNROLL
+      for (int i = 0; i < N; ++i) {
+        ACME_UNROLL
         for (int j = 0; j < W; ++j) A[i][j] = A[i][j] - f[i] * rk[j];
+      }
     }
+    ACME_UNROLL
     for (int i = N - 1; i >= 0; --i) {
       const R d = A[i][i];
       const R safe = d == R(0) ? R(1) : d;
+      ACME_UNROLL
       for (int c = 0; c < M; ++c) {
         R rhs = A[i][N + c];
         if (i + 1 < N) {
           R acc = A[i][i + 1] * X[i + 1][c];
+          ACME_UNROLL
           for (int j = i + 2; j < N; ++j) acc = acc + A[i][j] * X[j][c];
           rhs = rhs - acc;
         }

@@ -17,22 +17,38 @@
 //    memory per thousands of operations.  One thread runs one lane for
 //    the whole time loop, branching on its own convergence: the masked
 //    while_loops of the vmapped JAX solve become this lane's loops, and no
-//    lane waits for another.  The carry (x, and each subsystem's warm
-//    start p, z, dz/dp) stays in the thread for the whole launch.
+//    lane waits for another beyond its warp.
+//  * No local memory: the lane's carry (x, and each subsystem's warm start
+//    p, z, dz/dp) lives in shared memory for the whole launch, [NS][BLOCK]
+//    (value i of thread t at i * BLOCK + t), loaded once from st_in and
+//    stored once to st_out, so the registers hold only the working set of
+//    the subsystem being solved; every array is indexed by constants only
+//    (dense.cuh swaps pivot rows by selects), so none goes to a stack
+//    frame.  ptxas reports no frame and no spills in any build so far.
+//  * The model matrices are kernel arguments, one block of NMAT values per
+//    lane at a lane stride: 0 for a compiled model, whose block the
+//    launch stages into shared memory (every read a broadcast; `fresh`
+//    keeps the reads inside the Newton loop, where hoisted they would
+//    hold dozens of registers), NMAT for per-lane models, whose blocks
+//    stay in device memory, read through the read-only cache.  The
+//    wrapper picks the instantiation from the stride and raises where the
+//    card cannot give a block the shared memory it needs.  The header
+//    holds only the sizes, the block's layout and the element physics
+//    (with the entries of Jq it sets to a constant 0, whose products J =
+//    Jq Fq and Jq Pexp skip), so one build serves a model at any pot
+//    setting, its per-lane variants and any tolerance (a runtime
+//    argument).
 //  * Outputs are written time-major, y (T, L, NY), converged (T, L),
 //    iters (T, L, NSUB), so a warp's stores of one sample coalesce; the
 //    wrapper hands them on transposed.
-//  * The model matrices are kernel arguments, one block of NMAT values per
-//    lane at a lane stride: 0 for a compiled model (every lane reads the
-//    same block, a broadcast), NMAT for per-lane models.  The header holds
-//    only the sizes, the block's layout and the element physics, so one
-//    build serves a model at any pot setting, its per-lane variants and
-//    any tolerance (a runtime argument).
 //  * Inputs: each of the model's NU inputs comes from a shared time row
 //    (a sweep's audio), a per-lane constant (a sweep's pots) or a per-lane
 //    series (run's (L, NU, T)), by a map the wrapper passes; a sweep's
 //    input never becomes an (L, NU, T) tensor.
-//  * 4096 lanes in 32-thread blocks occupy 128 of the 132 SMs.
+//  * 4096 lanes in 32-thread blocks occupy 128 of the 132 SMs, one warp
+//    each.  Fewer lanes to a warp (8 lanes in each of a block's four
+//    warps, one warp a scheduler) was measured and lost: four warps on an
+//    SM slow each other more than a warp's slowest lane slows it.
 //
 // Both real types are built (entries _f64 and _f32), the float32 one for
 // the engine's dtype=float32.  Build: nvcc -gencode
@@ -82,6 +98,7 @@ struct Args {
 
 template <class R>
 HD inline void assemble_u(const Args<R>& a, int l, int t, R* u) {
+  ACME_UNROLL
   for (int i = 0; i < NU; ++i) {
     const int j = a.umap[2 * i + 1];
     switch (a.umap[2 * i]) {
@@ -94,16 +111,20 @@ HD inline void assemble_u(const Args<R>& a, int l, int t, R* u) {
 }
 
 // one sample of one lane (engine.py:254-274): the subsystems in order,
-// each p from x, u and the z of the earlier ones; then y and x'
-template <class R>
-HD inline void lane_step(const R* Mb, R* x, R* w, const R* u,
+// each p from x, u and the z of the earlier ones; then y and x'.  Mb is
+// the lane's model block, x and w views of its carry (x, then each
+// subsystem's warm start).
+template <class R, class M, class C>
+HD inline void lane_step(const M& Mb, const C& x, const C& w, const R* u,
                          const Params<R>& P, R* y, bool& conv, int* its) {
   R zacc[A1(NNT)];
+  ACME_UNROLL
   for (int i = 0; i < NNT; ++i) zacc[i] = R(0);
   conv = true;
 #define ACME_ENGINE_STEP_SUB(S)                                            \
   {                                                                        \
     R p[A1(S::NP)], z[A1(S::NN)];                                          \
+    ACME_UNROLL                                                            \
     for (int i = 0; i < S::NP; ++i)                                        \
       p[i] = (dot<NX>(Mb + S::M_DQ + i * NX, 1, x) +                       \
               dot<NU>(Mb + S::M_EQ + i * NU, 1, u)) +                      \
@@ -111,76 +132,124 @@ HD inline void lane_step(const R* Mb, R* x, R* w, const R* u,
     bool c;                                                                \
     solve_sub<S>(Mb, p, w + S::S_P, w + S::S_Z, w + S::S_D, P, z, c,       \
                  its[S::IDX]);                                             \
+    ACME_UNROLL                                                            \
     for (int i = 0; i < S::NN; ++i) zacc[S::OFF + i] = z[i];               \
     conv = conv && c;                                                      \
   }
   ACME_ENGINE_FOR_EACH_SUB(ACME_ENGINE_STEP_SUB)
 #undef ACME_ENGINE_STEP_SUB
+  ACME_UNROLL
   for (int o = 0; o < NY; ++o)
     y[o] = ((dot<NX>(Mb + M_DY + o * NX, 1, x) +
              dot<NU>(Mb + M_EY + o * NU, 1, u)) +
             dot<NNT>(Mb + M_FY + o * NNT, 1, zacc)) +
            Mb[M_Y0 + o];
   R xn[A1(NX)];
+  ACME_UNROLL
   for (int i = 0; i < NX; ++i)
     xn[i] = ((dot<NX>(Mb + M_A + i * NX, 1, x) +
               dot<NU>(Mb + M_B + i * NU, 1, u)) +
              dot<NNT>(Mb + M_C + i * NNT, 1, zacc)) +
             Mb[M_X0 + i];
+  ACME_UNROLL
   for (int i = 0; i < NX; ++i) x[i] = xn[i];
 }
 
-// one lane's whole run: load its state, step every sample, store it back
-template <class R>
-HD inline void run_lane(const Args<R>& a, int l) {
-  const R* Mb = a.mats + l * a.mat_stride;
-  R s[A1(NS)];
-  for (int i = 0; i < NS; ++i) s[i] = a.st_in[(long long)l * NS + i];
+// one lane's whole run from its carry s (loaded before, stored after):
+// step every sample, writing y, converged and iters
+template <class R, class M, class C>
+HD inline void run_lane(const Args<R>& a, int l, const M& Mb, const C& s) {
   for (int t = 0; t < a.T; ++t) {
     R u[A1(NU)], y[A1(NY)];
     int its[A1(NSUB)];
     bool c;
     assemble_u(a, l, t, u);
-    lane_step<R>(Mb, s, s + NX, u, a.P, y, c, its);
+    lane_step<R>(fresh(Mb), s, s + NX, u, a.P, y, c, its);
     const long long tl = (long long)t * a.L + l;
+    ACME_UNROLL
     for (int o = 0; o < NY; ++o) a.y[tl * NY + o] = y[o];
     a.conv[tl] = c ? 1 : 0;
+    ACME_UNROLL
     for (int k = 0; k < NSUB; ++k) a.iters[tl * NSUB + k] = its[k];
   }
+}
+
+// the same on the host: the carry a local array (stride 1), the model
+// block a plain pointer
+template <class R>
+void run_lane_host(const Args<R>& a, int l) {
+  R s[A1(NS)];
+  for (int i = 0; i < NS; ++i) s[i] = a.st_in[(long long)l * NS + i];
+  run_lane(a, l, a.mats + l * a.mat_stride, Strided<R, 1>{s});
   for (int i = 0; i < NS; ++i) a.st_out[(long long)l * NS + i] = s[i];
 }
 
-#ifdef __CUDACC__
+// a block on the card: one warp, a lane a thread
 constexpr int BLOCK = 32;
-// per-thread stack for the frames of the functions that stay calls (the
-// same limit as fused.cu's: the limit belongs to the card's context)
-constexpr size_t STACK_BYTES = 16384;
 
+// dynamic shared memory of a block: its lanes' carry, [NS][BLOCK], then
+// the model block when the lanes share it
 template <class R>
-__global__ void __launch_bounds__(BLOCK, 1) acme_scan_kernel(Args<R> a) {
-  const int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l < a.L) run_lane(a, l);
+constexpr size_t smem_bytes(bool shared_mats) {
+  return sizeof(R) * ((size_t)NS * BLOCK + (shared_mats ? NMAT : 0));
 }
+
+#ifdef __CUDACC__
+
+// SHARED_MATS: every lane runs the one model block (mat_stride 0), staged
+// into shared memory, where every read is a broadcast; else lane l's
+// block at mats + l * mat_stride, read through the read-only cache
+template <class R, bool SHARED_MATS>
+__global__ void __launch_bounds__(BLOCK, 1) acme_scan_kernel(Args<R> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  R* carry = reinterpret_cast<R*>(smem_raw);
+  const int tid = threadIdx.x;
+  const long long l0 = (long long)blockIdx.x * BLOCK;
+  const int nl = (int)(a.L - l0 < BLOCK ? a.L - l0 : BLOCK);
+  // the block's (nl, NS) state rows, read coalesced, into [NS][BLOCK]
+  const R* st_in = a.st_in + l0 * NS;
+  for (int e = tid; e < nl * NS; e += BLOCK)
+    carry[(e % NS) * BLOCK + e / NS] = st_in[e];
+  if constexpr (SHARED_MATS) {
+    R* mats = carry + NS * BLOCK;
+    for (int i = tid; i < NMAT; i += BLOCK) mats[i] = a.mats[i];
+  }
+  __syncthreads();
+  // a thread without a lane leaves now: none waits at a barrier beside a
+  // running lane
+  if (tid >= nl) return;
+  const int l = (int)l0 + tid;
+  const Strided<R, BLOCK> s{carry + tid};
+  if constexpr (SHARED_MATS)
+    run_lane(a, l, (const R*)(carry + NS * BLOCK), s);
+  else
+    run_lane(a, l, Ldg<R>{a.mats + l * a.mat_stride}, s);
+  for (int i = 0; i < NS; ++i) a.st_out[(long long)l * NS + i] = s[i];
+}
+
+// returned for a block that needs more shared memory than the card gives
+// one (acme_scan_cuda_error names it)
+constexpr int SMEM_TOO_LARGE = -2;
 
 template <class R>
 int launch(const Args<R>& a, int device, void* stream) {
-  constexpr int MAX_DEVICES = 64;
-  static bool stack_set[MAX_DEVICES] = {};
-  if (device < 0 || device >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (!stack_set[device]) {
-    // raise the context's stack limit once, never lower it
-    size_t cur = 0;
-    e = cudaDeviceGetLimit(&cur, cudaLimitStackSize);
-    if (e == cudaSuccess && cur < STACK_BYTES)
-      e = cudaDeviceSetLimit(cudaLimitStackSize, STACK_BYTES);
-    if (e != cudaSuccess) return (int)e;
-    stack_set[device] = true;
-  }
   if (a.L <= 0 || a.T <= 0) return 0;
-  acme_scan_kernel<R><<<(a.L + BLOCK - 1) / BLOCK, BLOCK, 0,
-                        (cudaStream_t)stream>>>(a);
+  const bool shared = a.mat_stride == 0;
+  const size_t bytes = smem_bytes<R>(shared);
+  int optin = 0;
+  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device);
+  if (e != cudaSuccess) return (int)e;
+  if (bytes > (size_t)optin) return SMEM_TOO_LARGE;
+  void (*kernel)(Args<R>) = acme_scan_kernel<R, false>;
+  if (shared) kernel = acme_scan_kernel<R, true>;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<(a.L + BLOCK - 1) / BLOCK, BLOCK, bytes, (cudaStream_t)stream>>>(
+      a);
   return (int)cudaGetLastError();
 }
 #endif
@@ -249,19 +318,29 @@ int acme_scan_launch_f32(ACME_SCAN_ARGS, int device, void* stream) {
 
 // The CUDA runtime's name for an error code the launch returned.
 const char* acme_scan_cuda_error(int e) {
+  if (e == SMEM_TOO_LARGE)
+    return "a block's carry and model block exceed the shared memory the "
+           "card gives a block (acme_scan_smem_bytes)";
   return cudaGetErrorName((cudaError_t)e);
 }
 #endif
 
+// Bytes of dynamic shared memory a block of the launch takes: `f64` selects
+// the real type, `shared_mats` lanes that share one model block.
+long long acme_scan_smem_bytes(int f64, int shared_mats) {
+  return (long long)(f64 ? smem_bytes<double>(shared_mats != 0)
+                         : smem_bytes<float>(shared_mats != 0));
+}
+
 // The same run on the host, lane by lane (tests without a card).
 int acme_scan_host_f64(ACME_SCAN_ARGS) {
   const Args<double> a = make_args<double>(ACME_SCAN_PASS);
-  for (int l = 0; l < L; ++l) run_lane(a, l);
+  for (int l = 0; l < L; ++l) run_lane_host(a, l);
   return 0;
 }
 int acme_scan_host_f32(ACME_SCAN_ARGS) {
   const Args<float> a = make_args<float>(ACME_SCAN_PASS);
-  for (int l = 0; l < L; ++l) run_lane(a, l);
+  for (int l = 0; l < L; ++l) run_lane_host(a, l);
   return 0;
 }
 

@@ -923,6 +923,14 @@ def engine_header(nx, nu, ny, subs, nls):
             for n in ("dq", "eq", "fqprev", "fq", "pexp", "q0")) + ";")
         g, res, Jq = record(nl, s["nq"])
         o.append(_emit_fn("nl", g, res, Jq, s["nq"], "real"))
+        # the entries of Jq (row-major) that the physics sets to a constant
+        # 0: J = Jq Fq and Jq Pexp skip their products
+        zeros = [i * s["nq"] + c for i, row in enumerate(Jq)
+                 for c, n in enumerate(row)
+                 if g.nodes[n][0] == "const" and g.nodes[n][1][0] == 0.0]
+        test = " || ".join(f"k == {k}" for k in zeros)
+        o.append("  HD static constexpr bool jq_nonzero(int k) { return "
+                 + (f"!({test})" if zeros else "true") + "; }")
         o.append("};")
     o.append("}  // namespace acme_engine")
     subs_ = " ".join(f"F(acme_engine::ESub{k})" for k in range(len(subs)))

@@ -38,8 +38,10 @@ Phases, each printed with its seconds:
      (``csrc/scan.cu`` with its engine header, each build both real
      types): the main path's Super Over, the level Super Over, the
      clipper (which also serves the float32 clipper and four clippers as
-     per-lane models: the matrices are kernel arguments); meanwhile, in
-     worker processes on the host, the presets path's float64 references;
+     per-lane models: the matrices are kernel arguments), with ptxas's
+     registers, stack frame and spills and the SASS size of each kernel
+     entry; meanwhile, in worker processes on the host, the presets
+     path's float64 references;
   4. kernel against its plain torch version on the card: the diode
      clipper (128 lanes x 256 samples), birdie with its volume pot as a
      lane input (128 x 32), the Super Over (4096 x 32 from the seeds),
@@ -123,15 +125,18 @@ Phases, each printed with its seconds:
      the main path's Super Over at tol 1e-12 from the 4096-lane steady
      seeds, seven chained 1-s windows of ``run_sweep`` (ms per window and
      kernel ms, RT-factor per lane, Msamples/s, Newton iterations per
-     lane-sample, non-converged lane-samples), window 1 scored against
-     "_pw" and window 7 against "_st" on the 18 parity lanes (worst
-     <= -110 dB, median <= -120 dB); the same lanes' window 1 from seeds
-     computed in a batch of their own; the fused main path's windows 1
-     and 7 against the engine's on all 4096 lanes (worst lane with its
-     drive and tone, and the median; reported); then the level sweep's
-     window 1 through ``run`` from cold ((4096, 1, 44100) per-lane input)
-     against the level "_pw" references, the same gates; and one window
-     of each clipper build through its ``run``;
+     lane-sample, non-converged lane-samples; for windows 1 and 7 each
+     subsystem's mean Newton iterations per lane-sample against the mean
+     of each warp's maximum, for warps of 32, 16, 8 and 4 lanes), window
+     1 scored against "_pw" and window 7 against "_st" on the 18 parity
+     lanes (worst <= -110 dB, median <= -120 dB); the same lanes' window
+     1 from seeds computed in a batch of their own; the fused main path's
+     windows 1 and 7 against the engine's on all 4096 lanes (worst lane
+     with its drive and tone, and the median; reported); then the level
+     sweep's window 1 through ``run`` from cold ((4096, 1, 44100)
+     per-lane input) against the level "_pw" references, the same gates,
+     and its warp divergence; and one window of each clipper build
+     through its ``run``;
   6. the kernel launch counts of each path, by build (library).
 The "kernels" line has one entry per build: the main path's, the
 production and power-up builds of the level, presets and full paths, each
@@ -162,19 +167,27 @@ Three measurements run alone, with no result line:
      the full path's from where its power-up window left it over 2048),
      one launch each: kernel ms, aggregate lane-samples per second, and
      the first 4096 lanes bit for bit as the 4096-lane launch; ptxas's
-     numbers and the SASS size of each build;
+     numbers and the SASS size of each build; then the same for the
+     engine's main build over 4096 samples, its lanes and state the 18
+     parity lanes' values and steady seeds tiled (a worker process
+     computes the seeds from the start);
   engine. ``--engine``: phases 1-3 for the engine alone (the main and
      level Super Overs, the engine builds and the seeds' workers), phase
      4's engine rows and phase 5i without the fused comparison;
-  ab. ``--ab ROOT [ROOT ...]``: for each checkout of the repo in the order
-     given (a checkout named twice runs twice: parent, change, change,
-     parent), a process of its own (``--windows ROOT``) that builds that
-     checkout's main, level and full paths' builds and runs the main
-     path's first two windows from the seeds and the level and full
-     paths' first window from cold, printing kernel ms per window; every
+  ab. ``--ab [--engine-only] ROOT [ROOT ...]``: for each checkout of the
+     repo in the order given (a checkout named twice runs twice: parent,
+     change, change, parent), a process of its own (``--windows ROOT``)
+     that builds that checkout's main, level and full paths' builds and
+     runs the main path's first two windows from the seeds and the level
+     and full paths' first window from cold, then its engine builds: the
+     main build over one window of ``run_sweep`` from the 18 parity
+     lanes' steady seeds tiled to 4096 lanes (the seeds computed once per
+     ``--ab`` run, before the first visit) and the level window through
+     ``run`` from cold, each in float64 and float32, printing kernel ms
+     per window (``--engine-only``: the engine's windows alone); every
      visit's outputs bit for bit as the first's (a digest of y, state,
-     fails, iters and floored), each checkout's kernel ms against the
-     first's.
+     fails, iters and floored; the engine's of y, state, converged and
+     iters), each checkout's kernel ms against the first's.
 """
 
 from __future__ import annotations
@@ -1109,6 +1122,31 @@ def engine_window_rows(label, rows, L, card):
             f"bound {b[0]:.3f} ms ({b[1]}) | card: {card}")
 
 
+def warp_divergence(label, iters, card, torch, widths=(32, 16, 8, 4)):
+    """Newton iterations of each subsystem (``iters`` (T, L, nsub), the
+    kernel's own output): the mean per lane-sample, the mean over samples
+    and warps of each warp's maximum for warps of ``widths`` consecutive
+    lanes (a warp runs a subsystem's loop as long as its slowest lane), and
+    their ratio; then the same summed over the subsystems (a sample's
+    cost).  Returns {width: ratio of the sums}."""
+    T, L, n = iters.shape
+    mean = iters.sum(dim=(0, 1), dtype=torch.float64) / (T * L)
+    fmt = lambda v: "[" + ", ".join(f"{float(x):.3f}" for x in v) + "]"
+    parts, out = [f"mean {fmt(mean)} (sum {float(mean.sum()):.3f})"], {}
+    for w in widths:
+        if L < w:
+            continue
+        top = iters[:, :L // w * w].reshape(T, L // w, w, n).amax(dim=2) \
+            .sum(dim=(0, 1), dtype=torch.float64) / (T * (L // w))
+        out[w] = float(top.sum() / mean.sum())
+        parts.append(f"{w}-lane warps' max {fmt(top)} (sum "
+                     f"{float(top.sum()):.3f}), ratio {fmt(top / mean)} "
+                     f"(sums {out[w]:.3f})")
+    log(f"[{label}] warp divergence, Newton iterations per lane-sample by "
+        f"subsystem: " + "; ".join(parts) + f" | card: {card}")
+    return out
+
+
 def engine_drive(cm, call, windows, keep, torch, E):
     """``windows`` chained calls ``call(state) -> (y, state, info)``, each
     timed whole (CUDA events) and its launch alone; keeps window 1's and
@@ -1243,25 +1281,53 @@ def start_engine_builds(ex, engines, B):
     return builds
 
 
+def entry_label(name):
+    """An engine kernel entry's mangled name as its real type and, where
+    the build has both, where its model block lives."""
+    k = re.search(r"acme_scan_kernelI([df])(?:Lb([01])E)?", name)
+    if not k:
+        return name
+    return ("f64" if k.group(1) == "d" else "f32") + (
+        "" if k.group(2) is None else ", shared model block"
+        if k.group(2) == "1" else ", per-lane model blocks")
+
+
+def ptxas_entries(out):
+    """ptxas -v's numbers for each kernel entry in a build's log: [(entry,
+    registers, stack frame bytes, spill store bytes, spill load bytes)],
+    an engine entry named by ``entry_label``."""
+    rows, name, props = [], None, None
+    for ln in out.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name, props = entry_label(m.group(1)), (0, 0, 0)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and name is not None:
+            props = tuple(int(v) for v in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name is not None:
+            rows.append((name, int(m.group(1))) + props)
+            name = None
+    return rows
+
+
 def log_engine_builds(builds, engines, B):
-    """Phase 2's lines for the engine builds: nvcc seconds, ptxas's
-    registers and frames (held under the launch's stack limit); then each
-    runner's library loaded."""
+    """Phase 2's lines for the engine builds: nvcc seconds, and for each
+    kernel entry ptxas's registers, stack frame and spills and its SASS
+    size; then each runner's library loaded."""
     for names, fut in builds.values():
         path = fut.result()
         secs, out = B.LAST_BUILD.get(path, (0.0, "(cached)"))
-        frames = sum(int(b) for b in re.findall(r"(\d+) bytes stack frame",
-                                                out))
         log(f"[2 build] engine {' = '.join(names)} (scan.cu, float64 and "
-            f"float32): nvcc {secs:.1f}s -> {os.path.basename(path)}; stack "
-            f"frames sum to {frames} of the launch's {B.STACK_BYTES} bytes")
-        for ln in out.splitlines():
-            if "Used" in ln or ("stack frame" in ln and not ln.strip()
-                                .startswith("0 bytes stack frame, 0 bytes")):
-                log(f"    ptxas: {ln.strip()}")
-        if frames > B.STACK_BYTES:
-            raise SmokeFailure(f"engine {names}: ptxas stack frames sum to "
-                               f"{frames} bytes, over {B.STACK_BYTES}")
+            f"float32): nvcc {secs:.1f}s -> {os.path.basename(path)}")
+        sass = {entry_label(k): n for k, n in sass_sizes(path).items()}
+        for entry, regs, frame, st, ld in ptxas_entries(out):
+            log(f"    ptxas: {entry}: {regs} registers, {frame} bytes stack "
+                f"frame, {st} bytes spill stores, {ld} bytes spill loads; "
+                f"SASS {sass.get(entry, 0)} instructions")
     for cm in engines.values():
         cm._library()
 
@@ -1347,11 +1413,14 @@ def engine_path(eng, seed_state, seeds18, u, lane_values, drive, tone,
     for r in rows:
         r.append(engine_bound(cm, src, L, T, r[2].iters, torch))
     engine_window_rows("5i engine path", rows, L, card)
+    out_div = {w: warp_divergence(f"5i engine path, window {w}",
+                                  rows[w - 1][2].iters, card, torch)
+               for w in (1, WINDOWS)}
     lanes = S.select_parity_lanes(L_MAIN, 16, S.stress_lanes("pots", L_MAIN))
     descs = [f"drive {drive[i]:.3f}, tone {tone[i]:.3f}" for i in lanes]
     keys = [S.ref_key("pots", "chain", FS, T, MAIN_REPS, 1.0, drive[i],
                       tone[i], powerup="steady") for i in lanes]
-    out = {"windows": [(r[0], r[1]) for r in rows]}
+    out = {"windows": [(r[0], r[1]) for r in rows], "divergence": out_div}
     out["parity"] = engine_score("5i engine path", lanes, descs, keys,
                                  {"_pw": y1, "_st": y7}, torch,
                                  ENGINE_PARITY_WORST_DB,
@@ -1393,6 +1462,8 @@ def engine_path(eng, seed_state, seeds18, u, lane_values, drive, tone,
         cl, lambda st: cl.run(lvl_u), 1, True, torch, E)
     rows_l[0].append(engine_bound(cl, lsrc, L, T, rows_l[0][2].iters, torch))
     engine_window_rows("5i engine level window", rows_l, L, card)
+    out["level_divergence"] = warp_divergence("5i engine level window",
+                                              rows_l[0][2].iters, card, torch)
     lanes_l = S.select_parity_lanes(L_MAIN, 16,
                                     S.stress_lanes("level", L_MAIN))
     out["level_window"] = (rows_l[0][0], rows_l[0][1])
@@ -2010,18 +2081,43 @@ def engine_main():
         seed_pool.terminate()
         seed_pool.join()
 
-def sass_size(path):
-    """(instructions, bytes) of the kernel's SASS in library ``path``
-    (``cuobjdump -sass``; (0, 0) without it): the instruction stream its
-    warps fetch."""
+def sass_sizes(path):
+    """{kernel entry: instructions} of the SASS in library ``path``
+    (``cuobjdump -sass``; {} without it): the instruction stream each
+    kernel's warps fetch, 16 bytes an instruction."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         out = subprocess.run([tool, "-sass", path], capture_output=True,
                              text=True, timeout=300).stdout
     except (OSError, subprocess.SubprocessError):
-        return 0, 0
-    n = len(re.findall(r"/\*[0-9a-f]{4,}\*/", out))
+        return {}
+    sizes = {}
+    for part in re.split(r"Function : ", out)[1:]:
+        name = part.split(None, 1)[0]
+        sizes[name] = len(re.findall(r"/\*[0-9a-f]{4,}\*/", part))
+    return sizes
+
+
+def sass_size(path):
+    """(instructions, bytes) of all the SASS in library ``path``."""
+    n = sum(sass_sizes(path).values())
     return n, 16 * n
+
+
+def port_device(root, torch):
+    """The card (its nvidia-smi name and power limit), with the port
+    imported from the checkout at ``root`` and nowhere else."""
+    if not torch.cuda.is_available():
+        raise SmokeFailure("no CUDA device: this smoke run needs one GPU")
+    sys.path.insert(0, root)
+    import acme_tpu_torch
+    if not os.path.abspath(acme_tpu_torch.__file__).startswith(root + os.sep):
+        raise SmokeFailure(f"acme_tpu_torch imported from "
+                           f"{acme_tpu_torch.__file__}, not from {root}")
+    card = smi()
+    log(f"[1 device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
+        f"torch {torch.__version__} CUDA {torch.version.cuda} | {root}")
+    return card
 
 
 def port_paths(root, torch):
@@ -2029,21 +2125,12 @@ def port_paths(root, torch):
     of the checkout at ``root`` with the main path's seeds, their lane
     values and the level sweep's; each runner's build (and its power-up
     sibling's) compiled, ptxas's numbers and the SASS size printed."""
-    if not torch.cuda.is_available():
-        raise SmokeFailure("no CUDA device: this smoke run needs one GPU")
-    sys.path.insert(0, root)
-    import acme_tpu_torch
+    card = port_device(root, torch)
     from acme_tpu_torch import FusedRunner
     from acme_tpu_torch import sweeps as S
     from acme_tpu_torch.convert import load_steady_seed
     from acme_tpu_torch.ops import build as B
-    if not os.path.abspath(acme_tpu_torch.__file__).startswith(root + os.sep):
-        raise SmokeFailure(f"acme_tpu_torch imported from "
-                           f"{acme_tpu_torch.__file__}, not from {root}")
     dev = torch.device("cuda", 0)
-    card = smi()
-    log(f"[1 device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
-        f"torch {torch.__version__} CUDA {torch.version.cuda} | {root}")
     t0 = time.time()
     m_so, m_lvl, m_full = S.build_models(
         [S.model_spec("pots", "chain", FS), S.model_spec("level", "chain", FS),
@@ -2080,26 +2167,132 @@ def port_paths(root, torch):
     return card, runners, seed, lane_values, lv_level
 
 
+def parity_seeds():
+    """The main path's 18 parity lanes' values and their steady seeds
+    (``engine_seeds``, a batch of their own: about a minute of host
+    numpy): (lane values (18, 2), seeds)."""
+    from acme_tpu_torch import sweeps as S
+    lanes = S.select_parity_lanes(L_MAIN, 16, S.stress_lanes("pots", L_MAIN))
+    return S.lane_grid("pots", L_MAIN)[3][lanes], engine_seeds(lanes)
+
+
+def save_seeds(path, lv18, seeds):
+    x, warms, secs = seeds
+    np.savez(path, lv=lv18, x=x, secs=secs, **{
+        f"w{k}_{j}": v for k, w in enumerate(warms) for j, v in enumerate(w)})
+
+
+def load_seeds(path):
+    with np.load(path) as f:
+        nsub = len({k.split("_")[0] for k in f.files if k[0] == "w"})
+        return f["lv"], (f["x"], [tuple(f[f"w{k}_{j}"] for j in range(3))
+                                  for k in range(nsub)], float(f["secs"]))
+
+
+def tiled_seeds(lv18, seeds, L, dev, torch):
+    """The 18 parity lanes' values and seeds tiled to L lanes (lane i runs
+    parity lane i % 18): (lane values (L, 2), engine state on ``dev``)."""
+    idx = np.arange(L) % len(lv18)
+    x, warms, secs = seeds
+    return lv18[idx], engine_state(
+        (x[idx], [tuple(v[idx] for v in w) for w in warms], secs), dev, torch)
+
+
+def engine_scaling(cm, lv18, seeds, u, card, torch, E):
+    """Phase 4s for the engine's main build: one launch of
+    SCALING_SAMPLES samples at each lane count of SCALING_LANES (the 18
+    parity lanes' values and seeds tiled), each timed with CUDA events:
+    kernel ms, lane-samples per second, Newton iterations per lane-sample,
+    the bound, and the first 4096 lanes bit for bit as the 4096-lane
+    launch (the lanes are independent)."""
+    label = "4s lane scaling, engine main build"
+    T = SCALING_SAMPLES
+    ut = cm._as(u[:, :T])
+    lv, st = tiled_seeds(lv18, seeds, SCALING_LANES[0], cm.device, torch)
+    # the first launch of a library also loads its module
+    cm._scan(st, cm._sweep_src(ut[:, :16], cm._as(lv), (1, 2)), 16)
+    rates, first = {}, None
+    for L in SCALING_LANES:
+        lv, st = tiled_seeds(lv18, seeds, L, cm.device, torch)
+        src = cm._sweep_src(ut, cm._as(lv), (1, 2))
+        E.LAUNCH_EVENTS = []
+        s_out, (y, conv, iters) = cm._scan(st, src, T)
+        torch.cuda.synchronize()
+        (a, b), = E.LAUNCH_EVENTS
+        E.LAUNCH_EVENTS = None
+        ms = a.elapsed_time(b)
+        rate = L * T / (ms / 1e3)
+        b_ms, b_by = engine_bound(cm, src, L, T, iters, torch)
+        leaves = [s_out["x"]] + [v for w in s_out["warms"] for v in w]
+        if first is None:
+            first = (y, conv, iters, leaves)
+            L0 = L
+        else:
+            n = first[0].shape[1]
+            bad = [name for name, p, q in (("y", y[:, :n], first[0]),
+                                           ("converged", conv[:, :n],
+                                            first[1]),
+                                           ("iters", iters[:, :n], first[2]))
+                   if not torch.equal(p, q)]
+            bad += ["state"] * (not all(torch.equal(p[:n], q) for p, q in
+                                        zip(leaves, first[3])))
+            if bad:
+                raise SmokeFailure(f"{label}: the first {n} of {L} lanes "
+                                   f"differ from the {n}-lane launch in "
+                                   f"{bad}")
+        rates[L] = rate
+        log(f"[{label}] {L} lanes x {T} samples: kernel {ms:.1f} ms, "
+            f"{rate / 1e6:.3f} M lane-samples/s ({rate / rates[L0]:.2f} x "
+            f"the {L0}-lane rate), Newton iterations per lane-sample "
+            f"{float(iters.double().sum(-1).mean()):.3f}, bound {b_ms:.3f} ms "
+            f"({b_by}) | card: {card}")
+        del y, conv, iters, s_out, leaves
+
+
 def scaling_main():
     """``--scaling``: phases 1 and 2 for the main, level and full paths,
     then phase 4s for the main path's build from the seeds and for the
-    full path's from the state its power-up window left.  No result
+    full path's from the state its power-up window left; then the engine's
+    main build (its ptxas numbers, and phase 4s from the 18 parity lanes'
+    seeds, computed in a worker process from the start).  No result
     line."""
     import torch
-    card, runners, seed, lane_values, lv_level = port_paths(HERE, torch)
-    from acme_tpu_torch.ops import fused as F
-    from acme_tpu_torch.ops.emit import op_counts
-    u = (0.2 * np.sin(2 * np.pi * 1000 / FS * np.arange(FS)))[None, :]
-    t0 = time.time()
-    lane_scaling("4s lane scaling, main path", runners["main"], u,
-                 lane_values, seed, card, torch, F, op_counts)
-    *_, rows = drive_path("4s full path's power-up window", runners["full"],
-                          u[:, :2 * POWERUP_SAMPLES], lv_level, None, 1, [0],
-                          card, torch, F, op_counts, hold=1)
-    lane_scaling("4s lane scaling, full path", runners["full"], u, lv_level,
-                 rows[0][4][1], card, torch, F, op_counts,
-                 samples=SCALING_SAMPLES // 2)
-    log(f"[4s lane scaling] {time.time() - t0:.1f}s")
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    try:
+        sys.path.insert(0, HERE)
+        job = pool.apply_async(parity_seeds)
+        card, runners, seed, lane_values, lv_level = port_paths(HERE, torch)
+        from acme_tpu_torch import engine as E
+        from acme_tpu_torch import sweeps as S
+        from acme_tpu_torch.engine import compile_model
+        from acme_tpu_torch.ops import build as B
+        from acme_tpu_torch.ops import fused as F
+        from acme_tpu_torch.ops.emit import op_counts
+        u = (0.2 * np.sin(2 * np.pi * 1000 / FS * np.arange(FS)))[None, :]
+        t0 = time.time()
+        lane_scaling("4s lane scaling, main path", runners["main"], u,
+                     lane_values, seed, card, torch, F, op_counts)
+        *_, rows = drive_path("4s full path's power-up window",
+                              runners["full"], u[:, :2 * POWERUP_SAMPLES],
+                              lv_level, None, 1, [0], card, torch, F,
+                              op_counts, hold=1)
+        lane_scaling("4s lane scaling, full path", runners["full"], u,
+                     lv_level, rows[0][4][1], card, torch, F, op_counts,
+                     samples=SCALING_SAMPLES // 2)
+        del rows
+        (m_so,) = S.build_models([S.model_spec("pots", "chain", FS)])
+        eng = {"main": compile_model(m_so, tol=ENGINE_TOL,
+                                     device=torch.device("cuda", 0))}
+        with ThreadPoolExecutor(1) as ex:
+            log_engine_builds(start_engine_builds(ex, eng, B), eng, B)
+        lv18, seeds = job.get()
+        log(f"[4s lane scaling] the 18 parity lanes' seeds: {seeds[2]:.1f}s "
+            "of host time")
+        engine_scaling(eng["main"], lv18, seeds, u, card, torch, E)
+        log(f"[4s lane scaling] {time.time() - t0:.1f}s")
+    finally:
+        pool.terminate()
+        pool.join()
 
 
 def digest(window):
@@ -2112,50 +2305,148 @@ def digest(window):
     return h.hexdigest()
 
 
-def windows_main(root):
-    """``--windows ROOT``: the checkout at ROOT's main path (its first
-    AB_MAIN_WINDOWS windows from the seeds), then the level and full
-    paths' first window from cold; the last line one JSON object: each
-    path's window ms, kernel ms and digests."""
-    import torch
-    card, runners, seed, lane_values, lv_level = port_paths(
-        os.path.abspath(root), torch)
-    from acme_tpu_torch.ops import fused as F
-    from acme_tpu_torch.ops.emit import op_counts
+def engine_windows(lv18, seeds, card, torch):
+    """``--windows``' engine paths, each in float64 (the references'
+    tolerance) and float32 (its default tolerance), one library for both:
+    the main build over one 1-s window of ``run_sweep`` from the 18 parity
+    lanes' seeds tiled to 4096 lanes ("engine main"), and the level
+    window through ``run`` from cold ("engine level").  Each window timed
+    whole and its launch alone, with a digest of its y, state, converged
+    and iters; the float64 windows' warp divergence.  Returns {path:
+    {"ms", "kernel_ms", "digest"}}."""
+    from acme_tpu_torch import engine as E
+    from acme_tpu_torch import sweeps as S
+    from acme_tpu_torch.engine import compile_model
+    from acme_tpu_torch.ops import build as B
+    dev = torch.device("cuda", 0)
+    t0 = time.time()
+    m_so, m_lvl = S.build_models([S.model_spec("pots", "chain", FS),
+                                  S.model_spec("level", "chain", FS)])
+    f32 = dict(dtype=torch.float32, warn=False, device=dev)
+    eng = {"engine main": compile_model(m_so, tol=ENGINE_TOL, device=dev),
+           "engine main f32": compile_model(m_so, **f32),
+           "engine level": compile_model(m_lvl, tol=ENGINE_TOL, device=dev),
+           "engine level f32": compile_model(m_lvl, **f32)}
+    log(f"[3 model] main and level Super Over, engine runners {list(eng)} "
+        f"in {time.time() - t0:.1f}s")
+    t0 = time.time()
+    with ThreadPoolExecutor(BUILD_WORKERS) as ex:
+        builds = start_engine_builds(ex, eng, B)
+        log_engine_builds(builds, eng, B)
+    log(f"[2 build] {len(builds)} engine builds in {time.time() - t0:.1f}s")
     u = (0.2 * np.sin(2 * np.pi * 1000 / FS * np.arange(FS)))[None, :]
+    levels = S.lane_grid("level", L_MAIN)[0]
+    lv, st = tiled_seeds(lv18, seeds, L_MAIN, dev, torch)
     out = {}
-    for name, lv, state, windows in (
-            ("main", lane_values, seed, AB_MAIN_WINDOWS),
-            ("level", lv_level, None, 1), ("full", lv_level, None, 1)):
-        *_, rows = drive_path(f"ab {name} path", runners[name], u, lv, state,
-                              windows, [0], card, torch, F, op_counts,
-                              hold=windows)
-        out[name] = {"ms": [r[0] for r in rows],
-                     "kernel_ms": [sum(r[2]) for r in rows],
-                     "digest": [digest(r) for r in rows]}
-        del rows
+    for name, cm in eng.items():
+        if "main" in name:
+            ut, lvt = cm._as(u), cm._as(lv)
+            call = lambda cm=cm, ut=ut, lvt=lvt: cm.run_sweep(
+                ut, lvt, (1, 2), state=st)
+        else:
+            lvl_u = cm._as(levels)[:, None, None] * cm._as(u)[None]
+            call = lambda cm=cm, lvl_u=lvl_u: cm.run(lvl_u)
+        E.LAUNCHES.clear()
+        E.LAUNCH_EVENTS = []
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        e0.record()
+        y, state, info = call()
+        e1.record()
+        torch.cuda.synchronize()
+        k_ms = sum(a.elapsed_time(b) for a, b in E.LAUNCH_EVENTS)
+        E.LAUNCH_EVENTS = None
+        if dict(E.LAUNCHES) != {cm.launch_key(): 1}:
+            raise SmokeFailure(f"{name}: launches {dict(E.LAUNCHES)}")
+        ms = e0.elapsed_time(e1)
+        h = hashlib.sha256()
+        for t in [y, state["x"]] + [v for w in state["warms"] for v in w] \
+                + [info.converged, info.iters]:
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        its = info.iters.sum(dtype=torch.float64) / info.converged.numel()
+        log(f"[ab {name} path] window 1: {L_MAIN} lanes x {u.shape[1]} "
+            f"samples {ms:.1f} ms (kernel {k_ms:.1f} ms) | RT-factor per "
+            f"lane {(u.shape[1] / FS) / (ms / 1e3):.3f}x | Newton iterations "
+            f"per lane-sample {float(its):.3f} | "
+            f"non-converged lane-samples {int((~info.converged).sum())} | "
+            f"card: {card}")
+        if not name.endswith("f32"):
+            warp_divergence(f"ab {name} path", info.iters, card, torch)
+        out[name] = {"ms": [ms], "kernel_ms": [k_ms],
+                     "digest": [h.hexdigest()]}
+        del y, state, info, its
+    return out
+
+
+def windows_main(args):
+    """``--windows ROOT [--engine-only] [--seeds FILE]``: the checkout at
+    ROOT's main path (its first AB_MAIN_WINDOWS windows from the seeds),
+    then the level and full paths' first window from cold (not with
+    ``--engine-only``), then the engine's paths (``engine_windows``) from
+    the 18 parity lanes' seeds in FILE (``save_seeds``; computed here
+    without it); the last line one JSON object: each path's window ms,
+    kernel ms and digests."""
+    import torch
+    root = args[0]
+    seeds_file = args[args.index("--seeds") + 1] if "--seeds" in args \
+        else None
+    out = {}
+    if "--engine-only" in args:
+        card = port_device(os.path.abspath(root), torch)
+    else:
+        card, runners, seed, lane_values, lv_level = port_paths(
+            os.path.abspath(root), torch)
+        from acme_tpu_torch.ops import fused as F
+        from acme_tpu_torch.ops.emit import op_counts
+        u = (0.2 * np.sin(2 * np.pi * 1000 / FS * np.arange(FS)))[None, :]
+        for name, lv, state, windows in (
+                ("main", lane_values, seed, AB_MAIN_WINDOWS),
+                ("level", lv_level, None, 1), ("full", lv_level, None, 1)):
+            *_, rows = drive_path(f"ab {name} path", runners[name], u, lv,
+                                  state, windows, [0], card, torch, F,
+                                  op_counts, hold=windows)
+            out[name] = {"ms": [r[0] for r in rows],
+                         "kernel_ms": [sum(r[2]) for r in rows],
+                         "digest": [digest(r) for r in rows]}
+            del rows
+        del runners
+    lv18, seeds = load_seeds(seeds_file) if seeds_file else parity_seeds()
+    out.update(engine_windows(lv18, seeds, card, torch))
     print(json.dumps({"root": root, "card": card, "paths": out}))
 
 
-def ab_main(roots):
-    """``--ab ROOT [ROOT ...]``: ``--windows`` for each checkout in the
-    order given, each in a process of its own; fails unless every visit's
-    windows are bit for bit the first visit's.  Prints each visit's kernel
-    ms and each checkout's mean against the first checkout's."""
+def ab_main(args):
+    """``--ab [--engine-only] ROOT [ROOT ...]``: ``--windows`` for each
+    checkout in the order given, each in a process of its own, every visit
+    from the 18 parity lanes' seeds computed once here; fails unless every
+    visit's windows are bit for bit the first visit's.  Prints each visit's
+    kernel ms and each checkout's mean against the first checkout's."""
+    import tempfile
+    only = [a for a in args if a == "--engine-only"]
+    roots = [a for a in args if a != "--engine-only"]
+    sys.path.insert(0, HERE)
+    t0 = time.time()
+    lv18, seeds = parity_seeds()
+    log(f"[ab] the 18 parity lanes' seeds: {time.time() - t0:.1f}s")
     visits = []
-    for root in roots:
-        t0 = time.time()
-        run = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--windows", root], capture_output=True,
-                             text=True, timeout=1800)
-        lines = run.stdout.strip().splitlines()
-        for ln in lines[:-1]:
-            log(f"  {ln}")
-        if run.returncode != 0 or not lines:
-            log(run.stderr[-4000:])
-            raise SmokeFailure(f"--windows {root} exited {run.returncode}")
-        visits.append(json.loads(lines[-1]))
-        log(f"[ab] {root}: {time.time() - t0:.1f}s")
+    with tempfile.TemporaryDirectory() as tmp:
+        seeds_file = os.path.join(tmp, "seeds.npz")
+        save_seeds(seeds_file, lv18, seeds)
+        for root in roots:
+            t0 = time.time()
+            run = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--windows", root,
+                 "--seeds", seeds_file] + only, capture_output=True,
+                text=True, timeout=1800)
+            lines = run.stdout.strip().splitlines()
+            for ln in lines[:-1]:
+                log(f"  {ln}")
+            if run.returncode != 0 or not lines:
+                log(run.stderr[-4000:])
+                raise SmokeFailure(f"--windows {root} exited "
+                                   f"{run.returncode}")
+            visits.append(json.loads(lines[-1]))
+            log(f"[ab] {root}: {time.time() - t0:.1f}s")
     first = visits[0]["paths"]
     for v in visits[1:]:
         for name, p in v["paths"].items():
@@ -2163,7 +2454,8 @@ def ab_main(roots):
                 raise SmokeFailure(f"--ab: {v['root']}'s {name} path is not "
                                    f"bit for bit as {visits[0]['root']}'s")
     log(f"[ab] every visit bit for bit as the first in y, state, fails, "
-        f"iters and floored | card: {visits[0]['card']}")
+        f"iters and floored (the engine's: y, state, converged and iters) "
+        f"| card: {visits[0]['card']}")
     means = {}
     for name in first:
         for v in visits:
@@ -2189,7 +2481,7 @@ if __name__ == "__main__":
         elif sys.argv[1:2] == ["--engine"]:
             engine_main()
         elif sys.argv[1:2] == ["--windows"]:
-            windows_main(sys.argv[2])
+            windows_main(sys.argv[2:])
         elif sys.argv[1:2] == ["--ab"]:
             ab_main(sys.argv[2:])
         else:

@@ -11,7 +11,9 @@ Bound as in tests/test_torch_fused.py: y within -90 dB of each lane's
 peak (bit-identical on the H100 so far), fails and floored equal.  The
 float64 scan engine's kernel (``csrc/scan.cu``) against its plain scan:
 y within -180 dB of each lane's peak, converged equal; its split over
-(cuda:0, cuda:0) bit for bit as unsplit.
+(cuda:0, cuda:0) bit for bit as unsplit; its two instantiations (the model
+block shared by every lane, staged in shared memory, and per-lane blocks
+in device memory) bit for bit with each other on a ragged lane count.
 """
 
 import copy
@@ -431,4 +433,33 @@ def test_engine_superover_and_split_on_card():
                                        for v in w],
                     [split[1]["x"]] + [v for w in split[1]["warms"]
                                        for v in w]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_engine_shared_and_per_lane_blocks_on_card():
+    """The clipper as one model (lane stride 0: the block staged in shared
+    memory) and as 100 per-lane copies (``compile_models``: the blocks read
+    from device memory) on the same 100 lanes x 256 samples (the last
+    32-lane block holds 4): bit for bit with each other in y, state,
+    converged and iters, each within -180 dB of the plain scan with
+    converged equal."""
+    from acme_tpu_torch.engine import _Src, compile_model, compile_models
+    dev = _card()
+    cm = compile_model(diodeclipper_model(), device=dev)
+    bm = compile_models([diodeclipper_model() for _ in range(100)],
+                        device=dev)
+    u = np.linspace(0.1, 3.0, 100)[:, None, None] * np.sin(
+        2 * np.pi * 1000 / FS * np.arange(256))[None, None]
+    src = _Src(umap=((2, 0),), ul=cm._as(u))
+    state = cm.initial_state(100)
+    runs = []
+    for m in (cm, bm):
+        _engine_vs_plain(m, src, state, 256)
+        runs.append(m._scan(state, src, 256))
+    (s1, out1), (s2, out2) = runs
+    for a, b in zip(list(out1) + [s1["x"]] + [v for w in s1["warms"]
+                                              for v in w],
+                    list(out2) + [s2["x"]] + [v for w in s2["warms"]
+                                              for v in w]):
         assert torch.equal(a, b)

@@ -8,14 +8,20 @@ the kernel's per-lane loop lane by lane.  Against the plain torch version
 on the same inputs:
 
 * ``solve_dense`` on random, singular, zero-pivot, tied-pivot and
-  NaN / inf systems, float64 and float32: bit for bit (no transcendental
-  is involved), NaN for NaN;
+  NaN / inf systems, and on systems that swap rows at every elimination
+  step, float64 and float32: bit for bit (no transcendental is
+  involved), NaN for NaN;
 * the whole run on the clipper (float64 and float32), birdie with its
   volume pot as a lane input, four clippers as per-lane models, the chain
   Super Over from its steady seeds (4 lanes x 64 samples) and the
   nonconvergence circuit of tests/test_engine.py: y within -180 dB of
   each lane's peak (the host's libm exp and torch's differ by an ulp in
-  some 5 % of arguments), ``converged`` equal.
+  some 5 % of arguments), ``converged`` equal;
+* one model's block shared by every lane (lane stride 0) against the
+  same model as per-lane blocks (``compile_models`` of copies): bit for
+  bit; a lane count that is not a multiple of 32 (the card's last block
+  ragged) against the plain scan, its first 32 lanes bit for bit as a
+  32-lane run.
 
 Skipped where g++ is absent.
 """
@@ -72,7 +78,52 @@ def _hard_cases():
             B[10].flat[rng.integers(n * m)] = np.inf
             J[11] = np.nan
             out.append((n, m, J, B))
-    return out
+    return out + _swapping_cases()
+
+
+def _swapping_cases():
+    """At every size the engine builds above 1 (2, 3, 5 and 8): 8
+    systems each whose elimination swaps rows at every step."""
+    rng = np.random.default_rng(12)
+    return [(n, m, _swapping(rng, n, 8), rng.normal(size=(8, n, m)))
+            for n in (2, 3, 5, 8) for m in (1, 2)]
+
+
+def _pivots(J):
+    """The pivot row that solve_dense's partial pivoting takes at each
+    elimination step of J (float64, no NaN)."""
+    A = np.array(J, dtype=np.float64)
+    rows = []
+    for k in range(A.shape[0]):
+        idx = k + int(np.argmax(np.abs(A[k:, k])))
+        rows.append(idx)
+        A[[k, idx]] = A[[idx, k]]
+        A[k + 1:] -= np.outer(A[k + 1:, k] / A[k, k], A[k])
+    return rows
+
+
+def _swapping(rng, n, count):
+    """``count`` n x n systems whose elimination swaps rows at every step
+    that can (each step but the last): P L U with a unit lower L whose
+    entries are below 1 in size, so the pivots follow P, rejected until
+    every step's pivot row is not its own."""
+    out = []
+    while len(out) < count:
+        L = np.tril(rng.uniform(-0.9, 0.9, (n, n)), -1) + np.eye(n)
+        U = np.triu(rng.normal(size=(n, n)), 1) + np.diag(
+            rng.uniform(1.0, 2.0, n) * rng.choice([-1.0, 1.0], n))
+        J = (L @ U)[rng.permutation(n)]
+        if all(p != k for k, p in enumerate(_pivots(J)[:-1])):
+            out.append(J)
+    return np.stack(out)
+
+
+def test_swapping_cases_swap_every_step():
+    for n, m, J, B in _swapping_cases():
+        for Ji in J:
+            for dt in (np.float64, np.float32):
+                rows = _pivots(Ji.astype(dt))
+                assert all(p != k for k, p in enumerate(rows[:-1])), (n, rows)
 
 
 @pytest.mark.parametrize("f64", [True, False], ids=["f64", "f32"])
@@ -185,3 +236,49 @@ def test_nonconvergence_circuit(out_dir):
     u = np.array([[[1.0, 1.0, -1.0, 0.5]], [[-1.0, 1.0, 1.0, 1.0]]])
     _, conv = _against_plain(out_dir, cm, cm.initial_state(2), _series(u), 4)
     assert not bool(conv.all()) and bool(conv.any())
+
+
+def test_shared_and_per_lane_blocks_bitwise(out_dir):
+    """One model's block read by every lane (lane stride 0: on the card
+    staged into shared memory) against the same model as 37 per-lane blocks
+    (``compile_models`` of copies: on the card read from device memory),
+    from one state: bit for bit in y, state, converged and iters."""
+    m = TM.diodeclipper_model()
+    cm = compile_model(copy.deepcopy(m), device="cpu")
+    bm = compile_models([copy.deepcopy(m) for _ in range(37)], device="cpu")
+    assert cm._header == bm._header
+    lib = load_engine_host(cm._header, out_dir)
+    nmat = cm._layout["nmat"]
+    assert cm.smem_bytes(lib, True) - cm.smem_bytes(lib, False) == 8 * nmat
+    u = np.linspace(0.1, 3.0, 37)[:, None, None] * _sine(128)[None, None]
+    state = cm.initial_state(37)
+    s1, out1 = cm.host_scan(lib, state, _series(u), 128)
+    s2, out2 = bm.host_scan(lib, state, _series(u), 128)
+    assert cm._blocks.shape[0] == 1 and bm._blocks.shape[0] == 37
+    for a, b in zip(list(out1) + _state_leaves(s1),
+                    list(out2) + _state_leaves(s2)):
+        assert torch.equal(a, b)
+
+
+def _state_leaves(st):
+    return [st["x"]] + [v for w in st["warms"] for v in w]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_ragged_lane_count(out_dir, dtype):
+    """37 lanes (the card's last 32-lane block holds 5) against the plain
+    scan, and its first 32 lanes bit for bit as a 32-lane run of them."""
+    cm = compile_model(TM.birdie_model(), dtype=dtype, device="cpu")
+    vols = np.linspace(0.05, 0.95, 37)[:, None]
+    u = cm._as(0.3 * _sine(96)[None])
+    src = cm._sweep_src(u, cm._as(vols), (1,))
+    _against_plain(out_dir, cm, cm.initial_state(37), src, 96)
+    lib = load_engine_host(cm._header, out_dir)
+    s37, out37 = cm.host_scan(lib, cm.initial_state(37), src, 96)
+    s32, out32 = cm.host_scan(lib, cm.initial_state(32), cm._sweep_src(
+        u, cm._as(vols[:32]), (1,)), 96)
+    for a, b in zip(out37, out32):              # (T, L, ...)
+        assert torch.equal(a[:, :32], b)
+    for a, b in zip(_state_leaves(s37), _state_leaves(s32)):
+        assert torch.equal(a[:32], b)
