@@ -494,8 +494,6 @@ class CompiledModel(_Engine):
             u_lanes[:, list(lane_input_idx)] = lane_values
         L = u_lanes.shape[0]
         xs, zs, conv = steadystate_sweep(model, u_lanes, runin=runin)
-        init_warm = [tuple(np.asarray(v.cpu(), float) for v in w)
-                     for w in self._init_warm]
         if not conv.all():
             # uncertified lanes get the standard cold start (the JAX
             # package's reasons: engine.py:187-205)
@@ -507,6 +505,19 @@ class CompiledModel(_Engine):
                           zs, np.concatenate([np.asarray(z0, float)
                                               for z0 in model.init_zs])
                           [None, :]) if zs.size else zs
+        return self._state_at(xs, zs, u_lanes, conv)
+
+    def _state_at(self, xs, zs, u_lanes, conv=None):
+        """The carry of lanes at the states ``xs`` (L, nx) and ``zs`` (L, nn)
+        under the constant inputs ``u_lanes`` (L, nu): each subsystem's warm
+        start at its p and z there, with dz/dp evaluated there.  Lanes where
+        ``conv`` is False carry the engine's exact init origin's p and
+        dz/dp."""
+        model = self.model
+        L = u_lanes.shape[0]
+        init_warm = [tuple(np.asarray(v.cpu(), float) for v in w)
+                     for w in self._init_warm]
+        cold = conv is not None and not conv.all()
         D = self._as
         warms = []
         off = 0
@@ -533,7 +544,7 @@ class CompiledModel(_Engine):
             if nn_k:
                 steep = np.abs(d).max(axis=(1, 2)) > 1e3
                 d[steep] = 0.0
-            if not conv.all():
+            if cold:
                 # cold lanes carry the engine's exact init origin
                 p_l = np.where(conv[:, None], p_l, init_warm[k][0][None])
                 d = np.where(conv[:, None, None], d, init_warm[k][2][None])

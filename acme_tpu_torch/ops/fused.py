@@ -720,20 +720,15 @@ class FusedRunner:
         nu_l0 = len(self.lane_idx)
         L = self._lanes(lane_values)
         midx = self._lane_model_idx(L)
-        x_l = np.zeros((L, max(self.nx, 1)))
-        z_l = np.zeros((L, max(self.nn_total, 1)))
-        wp_l = np.zeros((L, max(self.np_total, 1)))
-        dz_l = np.zeros((L, max(self.dz_total, 1)))
+        xs_l = np.zeros((L, self.nx))
+        zs_l = np.zeros((L, self.nn_total))
         floors_l = np.zeros((L, max(self.nsub, 1)))
         conv = np.ones(L, bool)
-        for mi, (m, p) in enumerate(zip(self.models, self._prep)):
+        for mi, m in enumerate(self.models):
             sel = np.nonzero(midx == mi)[0]
             if sel.size == 0:
                 continue
-            u_lanes = np.broadcast_to(self.u_ss,
-                                      (sel.size, m.nu)).astype(float).copy()
-            if nu_l0 and lane_values.size:
-                u_lanes[:, list(self.lane_idx)] = lane_values[sel, :nu_l0]
+            u_lanes = self._lane_inputs(m, lane_values, sel, nu_l0)
             uu, inv = np.unique(u_lanes, axis=0, return_inverse=True)
             inv = np.asarray(inv).reshape(-1)
             if uu.shape[0] < u_lanes.shape[0]:
@@ -754,10 +749,50 @@ class FusedRunner:
                                                    return_floors=True)
             conv[sel] = np.asarray(cv, bool)
             floors_l[sel, :fl.shape[1]] = fl
+            xs_l[sel], zs_l[sel] = xs, zs
+        n_bad = int((~conv).sum())
+        floors_l[~conv] = 0.0
+        self._steady_floors = floors_l
+        if n_bad:
+            warnings.warn(f"steady_initial_state: {n_bad}/{L} lanes did "
+                          "not certify steady; they start COLD and power "
+                          "up dynamically.")
+        return self._state_at(xs_l, zs_l, lane_values, conv)
+
+    def _lane_inputs(self, m, lane_values, sel, nu_l0):
+        """The constant inputs of the lanes ``sel``: the centre's, with the
+        lane inputs set to the lanes' values."""
+        u_lanes = np.broadcast_to(self.u_ss,
+                                  (sel.size, m.nu)).astype(float).copy()
+        if nu_l0 and lane_values.size:
+            u_lanes[:, list(self.lane_idx)] = lane_values[sel, :nu_l0]
+        return u_lanes
+
+    def _state_at(self, xs, zs, lane_values, conv=None):
+        """The carry of lanes at the states ``xs`` (L, nx) and ``zs`` (L, nn)
+        in the model's coordinates, under their constant inputs
+        (``lane_values`` as ``run`` takes them, every other input at the
+        centre's): x and z centred and balanced, each as a float32 (hi, lo)
+        pair, the extrapolation origin wp and each subsystem's dz/dp there.
+        Lanes where ``conv`` is False start cold (``initial_state``)."""
+        lane_values = np.asarray(lane_values, float)
+        nu_l0 = len(self.lane_idx)
+        L = self._lanes(lane_values)
+        midx = self._lane_model_idx(L)
+        x_l = np.zeros((L, max(self.nx, 1)))
+        z_l = np.zeros((L, max(self.nn_total, 1)))
+        wp_l = np.zeros((L, max(self.np_total, 1)))
+        dz_l = np.zeros((L, max(self.dz_total, 1)))
+        for mi, (m, p) in enumerate(zip(self.models, self._prep)):
+            sel = np.nonzero(midx == mi)[0]
+            if sel.size == 0:
+                continue
+            u_lanes = self._lane_inputs(m, lane_values, sel, nu_l0)
+            xs_m, zs_m = xs[sel], zs[sel]
             if self.nx:
-                x_l[sel, :self.nx] = (xs - p["x_ss"]) / self.Tx
+                x_l[sel, :self.nx] = (xs_m - p["x_ss"]) / self.Tx
             if self.nn_total:
-                z_l[sel, :self.nn_total] = zs - p["z_ss"]
+                z_l[sel, :self.nn_total] = zs_m - p["z_ss"]
             uc = u_lanes - self.u_ss
             off = doff = zoff = 0
             for kk in range(self.nsub):
@@ -769,13 +804,13 @@ class FusedRunner:
                         + z_l[sel, :self.nn_total]
                         @ np.asarray(m.fqprevs[kk], float).T)
                 if nnk and npk:
-                    p_phys = (np.asarray(m.dqs[kk], float) @ xs.T
+                    p_phys = (np.asarray(m.dqs[kk], float) @ xs_m.T
                               + np.asarray(m.eqs[kk], float) @ u_lanes.T
-                              + np.asarray(m.fqprevs[kk], float) @ zs.T)
+                              + np.asarray(m.fqprevs[kk], float) @ zs_m.T)
                     fq = np.asarray(m.fqs[kk], float)
                     pexp = np.asarray(m.pexps[kk], float)
                     q = (np.asarray(m.q0s[kk], float)[:, None]
-                         + pexp @ p_phys + fq @ zs.T[zoff:zoff + nnk])
+                         + pexp @ p_phys + fq @ zs_m.T[zoff:zoff + nnk])
                     with np.errstate(all="ignore"):
                         _, Jq = m.nl_funcs[kk](np, q)
                         J = np.einsum("ijl,jk->lik", Jq, fq)
@@ -791,13 +826,6 @@ class FusedRunner:
                 off += npk
                 doff += nnk * npk
                 zoff += nnk
-        n_bad = int((~conv).sum())
-        floors_l[~conv] = 0.0
-        self._steady_floors = floors_l
-        if n_bad:
-            warnings.warn(f"steady_initial_state: {n_bad}/{L} lanes did "
-                          "not certify steady; they start COLD and power "
-                          "up dynamically.")
         xlo = x_l - x_l.astype(np.float32).astype(np.float64)
         zlo = z_l - z_l.astype(np.float32).astype(np.float64)
         state = {"x": self._tensor(x_l.T), "xlo": self._tensor(xlo.T),
@@ -807,7 +835,7 @@ class FusedRunner:
                  "pmode": torch.zeros((max(self.nsub, 1), L),
                                       dtype=torch.float32,
                                       device=self.device)}
-        if n_bad:
+        if conv is not None and not conv.all():
             base = self.initial_state(L)
             ok = torch.as_tensor(conv, device=self.device)[None]
             state = {k: torch.where(ok, v, base[k]) for k, v in state.items()}

@@ -3,6 +3,7 @@
     python3 chip_smoke.py            # the whole run (needs one CUDA card)
     python3 chip_smoke.py --scaling  # phases 1, 2 and 4s alone
     python3 chip_smoke.py --engine   # the float64 scan engine's phases alone
+    python3 chip_smoke.py --golden   # phase 5j alone, with what it needs
     python3 chip_smoke.py --ab ROOT [ROOT ...]
                                      # the same windows of each checkout
                                      # ROOT in turns, bit for bit
@@ -19,8 +20,10 @@ Phases, each printed with its seconds:
      sweep's (the same circuit with fixed pots, its input scaled per
      lane), the presets sweep's (eight of those at other pot positions,
      the per-lane models of ONE runner: every coefficient that differs
-     between them reaches the kernel in two per-lane tables) and the
-     un-decomposed Super Over (one 7x7 subsystem);
+     between them reaches the kernel in two per-lane tables), the
+     un-decomposed Super Over (one 7x7 subsystem) and the un-decomposed
+     Super Over with drive and tone as inputs (the golden phase's); the
+     committed golden traces (tests/golden, tests/golden_torch);
   2. the nvcc builds of the fused kernel, started together (at most
      BUILD_WORKERS at a time): the clipper's, birdie's, the main path's,
      and for each of the three level-swept models two (the production
@@ -38,7 +41,11 @@ Phases, each printed with its seconds:
      (``csrc/scan.cu`` with its engine header, each build both real
      types): the main path's Super Over, the level Super Over, the
      clipper (which also serves the float32 clipper and four clippers as
-     per-lane models: the matrices are kernel arguments), with ptxas's
+     per-lane models: the matrices are kernel arguments), and, started
+     once the others are done and run beside phase 4's host-bound checks,
+     the golden phase's: the Sallen-Key filter (linear: no nonlinear
+     subsystem), birdie, the two un-decomposed Super Overs (the clipper's
+     and the main path's builds serve their traces too), with ptxas's
      registers, stack frame and spills and the SASS size of each kernel
      entry; meanwhile, in worker processes on the host, the presets
      path's float64 references;
@@ -61,7 +68,8 @@ Phases, each printed with its seconds:
      as per-lane models (x 256), the level Super Over from cold (4096 x
      32), and once the seeds are there the main path's Super Over (4096 x
      32 from them) and its split over ``(cuda:0, cuda:0)``, bit for bit as
-     unsplit; a kernel's time is the median of three launches queued
+     unsplit; the golden phase's own engine builds over the first 32
+     samples of their traces from the traces' starts; a kernel's time is the median of three launches queued
      behind a warm-up launch;
   5. the main path: 4096 lanes x 44100 samples from the seeds, chained
      for seven windows as the JAX package's bench chains them, each timed
@@ -136,7 +144,22 @@ Phases, each printed with its seconds:
      sweep's window 1 through ``run`` from cold ((4096, 1, 44100)
      per-lane input) against the level "_pw" references, the same gates,
      and its warp divergence; and one window of each clipper build
-     through its ``run``;
+     through its ``run``; the golden traces' lanes' furthest departure
+     of the fused window 1 from the engine's (each from its own seeds);
+  5j. the golden phase: the kernels against the committed 50-digit traces
+     (``acme_tpu_torch.utils.golden``), each run from its trace's start:
+     the engine kernel (tol 1e-12) on every trace, the traces of one model
+     and length as the lanes of one launch, each within -110 dB of its
+     trace's peak; the main path's production build on the lanes of the
+     main path's traces (tests/golden_torch) from their committed seeds
+     over the whole of window 1 (the trace's input, then the window's
+     rest, chained), fails and floored 0, each lane's dB against its trace
+     printed (not gated), beside the engine's from the same point over the
+     same window and the sample where the two depart furthest; the same
+     build on each resumed trace from the engine's carry there, one launch
+     each (reported);
+     the full path's production build on ``superover.npz`` from its
+     steady state, within -65 dB;
   6. the kernel launch counts of each path, by build (library).
 The "kernels" line has one entry per build: the main path's, the
 production and power-up builds of the level, presets and full paths, each
@@ -144,7 +167,8 @@ ablation build (the level path's production build is also the ablation's
 cf2) and its power-up build, the two verdict tiers' builds, and the
 groups path's two; then one per engine build and real type (the main
 path's Super Over, the level Super Over, the clipper in float64 and in
-float32, four clippers as per-lane models).
+float32, four clippers as per-lane models), and one per engine build only
+the golden phase runs (its launches there).
 Each kernel's bound (the least time the card could take for the same
 work) is the larger of its float operations, counted from the generated
 code and the build's configuration (``ops.emit.op_counts``: its
@@ -160,7 +184,7 @@ iteration's, times the iterations the run measured) over the H100's
 float64 peak (float32 for the float32 build) and its bytes over the
 memory rate.
 
-Three measurements run alone, with no result line:
+Four runs alone, with no result line:
   4s. ``--scaling``: the main path's production build and the full
      path's at 4096, 8192, 16384 and 32768 lanes (the 4096 lanes' values
      and state tiled: the main path's from the seeds over 4096 samples,
@@ -171,6 +195,9 @@ Three measurements run alone, with no result line:
      engine's main build over 4096 samples, its lanes and state the 18
      parity lanes' values and steady seeds tiled (a worker process
      computes the seeds from the start);
+  golden. ``--golden``: phase 5j with the phases it needs (the device,
+     its models and builds, phase 4's rows for the engine builds only it
+     runs);
   engine. ``--engine``: phases 1-3 for the engine alone (the main and
      level Super Overs, the engine builds and the seeds' workers), phase
      4's engine rows and phase 5i without the fused comparison;
@@ -1454,6 +1481,11 @@ def engine_path(eng, seed_state, seeds18, u, lane_values, drive, tone,
         out["fused_w7"] = fused_vs_engine(f"5i fused vs engine, window "
                                           f"{WINDOWS}", fused[1], y7, y7,
                                           drive, tone, lanes, torch)
+        # the golden traces' lanes (each runtime from its own seeds here)
+        gl = sorted({int(t["lane"]) for g, t in golden_traces().values()
+                     if g == "main"})
+        golden_peaks("5i fused vs engine, window 1", fused[0][gl],
+                     y1[gl, 0].cpu().numpy(), gl, drive, tone)
     del y1, y7
     cl = eng["level"]
     lvl_u = cl._as(levels)[:, None, None] * cl._as(u)[None]
@@ -1512,6 +1544,267 @@ def engine_launch_checks(eng, launches, expected):
                                f"expected {want}")
 
 
+# -- the golden phase (5j): the kernels against 50-digit traces --------------
+
+# the committed traces: the JAX package's seven (tests/golden, each model
+# as tests/test_golden.py builds it, by group) and the main path's
+# (tests/golden_torch, group "main")
+GOLDEN_COMMITTED = {"diodeclipper": "diodeclipper", "sallenkey": "sallenkey",
+                    "birdie": "birdie", "superover": "superover",
+                    "superover_pots_lo": "superover_pots",
+                    "superover_pots_mid": "superover_pots",
+                    "superover_pots_hi": "superover_pots"}
+# the engine builds that only the golden phase runs (the clipper's and the
+# main path's are phase 2's): phase 4 holds each against its plain version
+# over this many samples of its traces
+GOLDEN_OWN_BUILDS = ("sallenkey", "birdie", "superover", "superover_pots")
+GOLDEN_CHECK_SAMPLES = 32
+
+
+def golden_traces():
+    """{name: (group, trace)}: every committed trace, each a dict of its
+    npz's arrays."""
+    out = {}
+    for name, group in GOLDEN_COMMITTED.items():
+        with np.load(os.path.join(HERE, "tests", "golden",
+                                  f"{name}.npz")) as f:
+            out[name] = (group, dict(f))
+    d = os.path.join(HERE, "tests", "golden_torch")
+    for fn in sorted(os.listdir(d)):
+        if fn.endswith(".npz"):
+            with np.load(os.path.join(d, fn)) as f:
+                out[fn[:-4]] = ("main", dict(f))
+    if not any(g == "main" for g, _ in out.values()):
+        raise SmokeFailure(f"no main-path trace in {d}")
+    return out
+
+
+def golden_engines(m_full, m_pots, m_so, dev):
+    """The engine at the references' tolerance on each golden group's
+    model (the Super Overs copies as built): {"golden <group>":
+    CompiledModel}."""
+    from acme_tpu_torch.engine import compile_model
+    from acme_tpu_torch.models import (birdie_model, diodeclipper_model,
+                                       sallenkey_model)
+    models = {"diodeclipper": diodeclipper_model(fs=FS),
+              "sallenkey": sallenkey_model(fs=FS),
+              "birdie": birdie_model(vol=0.8, fs=FS),
+              "superover": m_full, "superover_pots": m_pots, "main": m_so}
+    return {"golden " + g: compile_model(m, tol=ENGINE_TOL, device=dev)
+            for g, m in models.items()}
+
+
+def golden_checks(eng, traces, torch, E):
+    """Phase 4's rows for the engine builds only the golden phase runs:
+    each against its plain version over the first GOLDEN_CHECK_SAMPLES of
+    its traces (one lane each), from their starts."""
+    from acme_tpu_torch.engine import _Src
+    from acme_tpu_torch.utils.golden import engine_start
+    checks = {}
+    n = GOLDEN_CHECK_SAMPLES
+    for g in GOLDEN_OWN_BUILDS:
+        cm = eng["golden " + g]
+        trs = [t for gg, t in traces.values() if gg == g]
+        src = _Src(umap=tuple((2, i) for i in range(cm.nu)),
+                   ul=cm._as(np.stack([t["u"][:, :n] for t in trs])))
+        checks["golden " + g] = engine_case(
+            f"engine {g} (golden traces, from their starts)", cm, src,
+            engine_start(cm, trs), n, torch, E)
+    return checks
+
+
+def golden_peaks(label, y_fused, y_engine, lanes, drive, tone):
+    """For each of ``lanes``: the sample of the window where the fused
+    output (host, (L, T)) departs furthest from the engine's (same shape),
+    and that distance over the engine's peak on the lane, in dB.  Returns
+    {lane: (sample, dB)}."""
+    out = {}
+    for j, lane in enumerate(lanes):
+        d = np.abs(np.asarray(y_fused[j], float) - np.asarray(y_engine[j],
+                                                              float))
+        s = int(np.argmax(d))
+        db = 20 * np.log10(float(d[s]) / max(float(np.abs(
+            y_engine[j]).max()), 1e-12) + 1e-300)
+        out[lane] = (s, db)
+        log(f"[{label}] lane {lane} (drive {drive[lane]:.3f}, tone "
+            f"{tone[lane]:.3f}): fused against the engine over window 1 "
+            f"peaks at sample {s} ({db:.1f} dB of the engine's peak)")
+    return out
+
+
+def golden_path(eng, fr_so, fr_full, traces, u, drive, tone, card, torch,
+                F, E):
+    """Phase 5j: the kernels on the 50-digit traces, each run from its
+    trace's start.  The engine kernel (tol 1e-12) on every trace, the
+    traces of one model and length as the lanes of one launch, each within
+    ENGINE_PARITY_WORST_DB of its trace's peak; the main path's production
+    build on the main path's seeded traces' lanes from their committed
+    seeds, over the whole of window 1 (the trace's input, then the rest of
+    the window, chained), fails and floored 0, each lane's dB against its
+    trace printed and not gated, beside the engine's from the same start
+    over the same window and the sample where the two depart furthest; the
+    same build on each resumed trace from the engine's carry there (one
+    launch each: their audio starts at different samples), reported; the
+    full path's production build on ``superover.npz``
+    within FULL_PARITY_WORST_DB.  The launch counts are set to 0 just
+    before and read just after.  Returns (fused launches, engine
+    launches)."""
+    from acme_tpu_torch.convert import load_steady_seed
+    from acme_tpu_torch.utils.golden import (engine_start, fused_start,
+                                             trace_db)
+    F.LAUNCHES.clear()
+    E.LAUNCHES.clear()
+    dbs = {n: {} for n in traces}
+    bad = []
+    # the engine on every trace but the main path's seeded ones (below)
+    batches = {}
+    for name, (g, tr) in traces.items():
+        if g != "main" or int(tr["start"]):
+            batches.setdefault((g, tr["u"].shape), []).append(name)
+    for (g, _), names in batches.items():
+        cm = eng["golden " + g]
+        trs = [traces[n][1] for n in names]
+        y, _, info = cm.run(np.stack([t["u"] for t in trs]),
+                            state=engine_start(cm, trs))
+        y = y.cpu().numpy()
+        for j, n in enumerate(names):
+            dbs[n]["engine"] = trace_db(y[j], trs[j]["y"])
+        log(f"[5j golden] engine kernel ({g}, {len(names)} lanes x "
+            f"{trs[0]['u'].shape[1]} samples): " + ", ".join(
+                f"{n} {dbs[n]['engine']:.1f} dB" for n in names)
+            + f"; non-converged lane-samples {int((~info.converged).sum())}")
+    # the main path's seeded lanes: fused from the committed seeds, engine
+    # from the same point, window 1 in two chained calls (the trace's input,
+    # then the window's rest)
+    seeded = [n for n, (g, t) in traces.items()
+              if g == "main" and not int(t["start"])]
+    trs = [traces[n][1] for n in seeded]
+    if any(not np.array_equal(t["u"][0], trs[0]["u"][0]) for t in trs):
+        raise SmokeFailure("the seeded main-path traces' audio differs")
+    lanes = [int(t["lane"]) for t in trs]
+    T0 = trs[0]["u"].shape[1]
+    lv = np.stack([t["u"][1:, 0] for t in trs])
+    seed = load_steady_seed(os.path.join(HERE, ".steadyseed_cache.npz"),
+                            SEED_TAG, fr_so, lanes=lanes)
+    t0 = time.time()
+    y1, st, i1 = fr_so.run(trs[0]["u"][:1], lv, state=seed, check=False)
+    y2, _, i2 = fr_so.run(u[:, T0:], lv, state=st, check=False)
+    torch.cuda.synchronize()
+    t_fused = time.time() - t0
+    y_f = torch.cat([y1, y2], dim=2)[:, 0].cpu().numpy()
+    fails = int(i1.fails.sum() + i2.fails.sum())
+    floored = int(i1.floored.sum() + i2.floored.sum())
+    cm = eng["golden main"]
+    t0 = time.time()
+    ye1, es, c1 = cm.run_sweep(cm._as(trs[0]["u"][:1]), cm._as(lv), (1, 2),
+                               state=engine_start(cm, trs))
+    ye2, _, c2 = cm.run_sweep(cm._as(u[:, T0:]), cm._as(lv), (1, 2),
+                              state=es)
+    torch.cuda.synchronize()
+    t_engine = time.time() - t0
+    y_e = torch.cat([ye1, ye2], dim=2)[:, 0].cpu().numpy()
+    nc = int((~c1.converged).sum() + (~c2.converged).sum())
+    log(f"[5j golden] main path's seeded lanes {lanes}, window 1 "
+        f"({y_f.shape[1]} samples): fused {t_fused:.1f}s, fails {fails}, "
+        f"floored {floored}; engine {t_engine:.1f}s, non-converged "
+        f"lane-samples {nc}")
+    peaks = golden_peaks("5j golden", y_f, y_e, lanes, drive, tone)
+    for j, (n, lane) in enumerate(zip(seeded, lanes)):
+        dbs[n]["fused"] = trace_db(y_f[j, :T0], trs[j]["y"][0])
+        dbs[n]["engine"] = trace_db(y_e[j, :T0], trs[j]["y"][0])
+        s, db = peaks[lane]
+        log(f"[5j golden] {n} (lane {lane}, drive {drive[lane]:.3f}, tone "
+            f"{tone[lane]:.3f}), its {T0} samples: fused main path "
+            f"{dbs[n]['fused']:.1f} dB, engine {dbs[n]['engine']:.1f} dB of "
+            f"the trace's peak; over window 1 the two depart furthest at "
+            f"sample {s} ({db:.1f} dB; "
+            + ("inside the trace" if s < T0 else "after the trace") + ")")
+    if fails or floored:
+        bad.append(f"main path's build on the seeded lanes: fails {fails}, "
+                   f"floored {floored}")
+    # the resumed traces: the fused main build from the engine's carry,
+    # one launch each (their audio starts at different samples)
+    for n, (g, tr) in traces.items():
+        if g != "main" or not int(tr["start"]):
+            continue
+        lane = int(tr["lane"])
+        lv1 = tr["u"][1:, :1].T
+        load_steady_seed(os.path.join(HERE, ".steadyseed_cache.npz"),
+                         SEED_TAG, fr_so, lanes=[lane])
+        y, _, info = fr_so.run(tr["u"][:1], lv1,
+                               state=fused_start(fr_so, [tr], lv1),
+                               check=False)
+        dbs[n]["fused"] = trace_db(y[0, 0].cpu().numpy(), tr["y"][0])
+        log(f"[5j golden] {n} (lane {lane}, from sample {int(tr['start'])} "
+            f"of window 1, the engine's carry): fused main path "
+            f"{dbs[n]['fused']:.1f} dB, engine {dbs[n]['engine']:.1f} dB; "
+            f"fused fails {int(info.fails.sum())}, floored "
+            f"{int(info.floored.sum())} (reported)")
+    # the full path's build on superover.npz, from its steady state
+    tr = traces["superover"][1]
+    lv1 = np.ones((1, 1))
+    y, _, info = fr_full.run(tr["u"], lv1, state=fused_start(fr_full, [tr],
+                                                             lv1),
+                             check=False)
+    dbs["superover"]["fused full"] = trace_db(y[0].cpu().numpy(), tr["y"])
+    log(f"[5j golden] superover ({tr['u'].shape[1]} samples from its steady "
+        f"state): fused full path {dbs['superover']['fused full']:.1f} dB, "
+        f"fails {int(info.fails.sum())}, floored {int(info.floored.sum())}")
+    if dbs["superover"]["fused full"] > FULL_PARITY_WORST_DB:
+        bad.append(f"fused full path on superover "
+                   f"{dbs['superover']['fused full']:.1f} dB > "
+                   f"{FULL_PARITY_WORST_DB}")
+    for n, d in dbs.items():
+        if d["engine"] > ENGINE_PARITY_WORST_DB:
+            bad.append(f"engine on {n} {d['engine']:.1f} dB > "
+                       f"{ENGINE_PARITY_WORST_DB}")
+    fused_l, engine_l = dict(F.LAUNCHES), dict(E.LAUNCHES)
+    log(f"[5j golden] (card: {card})")
+    if bad:
+        raise SmokeFailure(f"golden phase: {bad}")
+    return fused_l, engine_l
+
+
+def golden_launch_checks(eng, fr_so, fr_full, traces, fused_l, engine_l):
+    """Fail unless the golden phase launched the main path's build twice
+    and once for each resumed trace, the full path's once, and each golden
+    engine once per batch of its traces (the main path's seeded ones in
+    two chained calls), and nothing else."""
+    resumed = sum(g == "main" and int(t["start"]) > 0
+                  for g, t in traces.values())
+    want_f = {fr_so.plan.cuda_name: 2 + resumed, fr_full.plan.cuda_name: 1}
+    want_e = {}
+    batches = {(g, t["u"].shape) for g, t in traces.values()
+               if g != "main" or int(t["start"])}
+    for g, _ in batches:
+        key = eng["golden " + g].launch_key()
+        want_e[key] = want_e.get(key, 0) + 1
+    key = eng["golden main"].launch_key()
+    want_e[key] = want_e.get(key, 0) + 2
+    log(f"[6 launches] golden phase: fused {fused_l}, engine {engine_l}")
+    if fused_l != want_f or engine_l != want_e:
+        raise SmokeFailure(f"golden phase launches fused {fused_l}, engine "
+                           f"{engine_l}; expected {want_f}, {want_e}")
+
+
+def golden_entries(eng, checks, engine_l):
+    """The "kernels" line's entries for the engine builds only the golden
+    phase runs, with their phase-4 numbers and their golden launches."""
+    out = []
+    for g in GOLDEN_OWN_BUILDS:
+        c = checks["golden " + g]
+        out.append({"name": f"scan ({g}, float64, golden phase)",
+                    "route": "cuda",
+                    "source": "acme_tpu_torch/ops/csrc/scan.cu",
+                    "replaces": "acme_tpu/engine.py:247-279",
+                    "launches": engine_l.get(eng["golden " + g].launch_key(),
+                                             0),
+                    "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+                    "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                    "bound_by": c["bound_by"], "library_ms": None})
+    return out
+
+
 def main():
     t_start = time.time()
     import torch
@@ -1523,19 +1816,26 @@ def main():
     # the 18 parity lanes' seeds in a batch of their own, in worker
     # processes from the start; the pool is terminated on every exit
     seed_pool = multiprocessing.get_context("spawn").Pool(2)
+    # the golden phase's own engine builds (the un-decomposed pots Super
+    # Over's is the run's longest nvcc) in threads of their own, started
+    # after phase 2's builds, on the cores phase 4's host-bound checks
+    # leave idle, and waited for where phase 4 first needs them
+    golden_pool = ThreadPoolExecutor(len(GOLDEN_OWN_BUILDS))
     try:
         seeds = (seed_pool.apply_async(engine_seeds),
                  seed_pool.apply_async(engine_seeds, (S.select_parity_lanes(
                      L_MAIN, 16, S.stress_lanes("pots", L_MAIN)),)))
-        return run_all(t_start, torch, seeds)
+        return run_all(t_start, torch, seeds, golden_pool)
     finally:
         seed_pool.terminate()
         seed_pool.join()
+        golden_pool.shutdown(cancel_futures=True)
 
 
-def run_all(t_start, torch, seed_jobs):
+def run_all(t_start, torch, seed_jobs, golden_pool):
     """The whole run (``main``), the engine's seeds computing in
-    ``seed_jobs``."""
+    ``seed_jobs``, the golden phase's own engine builds in
+    ``golden_pool``."""
     from acme_tpu_torch import FusedRunner, ablate
     from acme_tpu_torch import sweeps as S
     from acme_tpu_torch.convert import load_steady_seed
@@ -1563,14 +1863,17 @@ def run_all(t_start, torch, seed_jobs):
     # 3 (prepared first: the builds need the prepared runners)
     t0 = time.time()
     pre_specs = [S.preset_spec(d, t, FS) for d, t in S.PRESETS]
-    m_so, m_lvl, m_full, *m_pre = S.build_models(
+    m_so, m_lvl, m_full, m_pots, *m_pre = S.build_models(
         [S.model_spec("pots", "chain", FS), S.model_spec("level", "chain", FS),
-         S.model_spec("level", "full", FS)] + pre_specs)
-    log(f"[3 model] {3 + len(m_pre)} Super Over models built in "
+         S.model_spec("level", "full", FS), S.model_spec("pots", "full", FS)]
+        + pre_specs)
+    log(f"[3 model] {4 + len(m_pre)} Super Over models built in "
         f"{time.time() - t0:.1f}s (worker processes)")
-    # the models as built, for the runners of phases 5e and 5f (a runner's
-    # centering runs the model's stateful host solvers)
+    # the models as built, for the runners of phases 5e, 5f and 5j (a
+    # runner's centering runs the model's stateful host solvers)
     m_so_built, m_lvl_built = copy.deepcopy(m_so), copy.deepcopy(m_lvl)
+    m_full_built = copy.deepcopy(m_full)
+    traces = golden_traces()
     t0 = time.time()
     fr_so = FusedRunner(m_so, lane_input_idx=(1, 2), device=dev,
                         powerup="steady", **prod)
@@ -1604,7 +1907,13 @@ def run_all(t_start, torch, seed_jobs):
     t0 = time.time()
     eng = engine_runners(copy.deepcopy(m_so_built), copy.deepcopy(m_lvl_built),
                          dev, torch)
-    log(f"[3 model] engine runners {list(eng)} in {time.time() - t0:.1f}s")
+    eng.update(golden_engines(m_full_built, m_pots, copy.deepcopy(m_so_built),
+                              dev))
+    log(f"[3 model] engine runners {list(eng)} in {time.time() - t0:.1f}s; "
+        f"{len(traces)} golden traces")
+    golden_own = {k: eng[k] for k in ("golden " + g
+                                      for g in GOLDEN_OWN_BUILDS)}
+    eng_shared = {k: cm for k, cm in eng.items() if k not in golden_own}
 
     t0 = time.time()
     runners = {"clipper": fr_clip, "birdie": fr_bird, "superover": fr_so}
@@ -1629,7 +1938,7 @@ def run_all(t_start, torch, seed_jobs):
     with ThreadPoolExecutor(BUILD_WORKERS) as ex, ProcessPoolExecutor(
             n_pre, mp_context=multiprocessing.get_context("spawn")) as pool:
         keys = {n: start(ex, n, r) for n, r in runners.items()}
-        eng_builds = start_engine_builds(ex, eng, B)
+        eng_builds = start_engine_builds(ex, eng_shared, B)
         # while nvcc runs: the presets path's float64 references, and the
         # runners of the step configurations, each build started as its
         # runner is ready
@@ -1718,7 +2027,7 @@ def run_all(t_start, torch, seed_jobs):
                                f"bytes, over the launch's {B.STACK_BYTES}")
     for r in runners.values():
         B.load_kernel(r.plan)
-    log_engine_builds(eng_builds, eng, B)
+    log_engine_builds(eng_builds, eng_shared, B)
     log(f"[2 build] {len(libs)} builds for {len(runners)} runners, total "
         f"{time.time() - t0:.1f}s (parallel; beside them "
         f"{len(abl) + 1 + len(tiers) + len(groups) + len(meshed)} "
@@ -1729,6 +2038,7 @@ def run_all(t_start, torch, seed_jobs):
         f"{t_refs:.1f}s)")
     for name in abl_skipped:
         log(f"[2 build] ablation {name}: skipped ({ablate.SKIPPED[name]})")
+    golden_builds = start_engine_builds(golden_pool, golden_own, B)
 
     t0 = time.time()
     log("[4 kernel vs plain] (card: " + card + ")")
@@ -1787,6 +2097,11 @@ def run_all(t_start, torch, seed_jobs):
     log(f"[4 kernel vs plain] lane groups {time.time() - t0:.1f}s")
     t0 = time.time()
     eng_checks = engine_checks(eng, u, levels, torch, E)
+    t1 = time.time()
+    log_engine_builds(golden_builds, golden_own, B)
+    log(f"[2 build] the golden phase's {len(golden_builds)} engine builds "
+        f"(since phase 4 began), waited {time.time() - t1:.1f}s here")
+    eng_checks.update(golden_checks(eng, traces, torch, E))
     log(f"[4 kernel vs plain] engine builds {time.time() - t0:.1f}s")
 
     t0 = time.time()
@@ -1897,6 +2212,12 @@ def run_all(t_start, torch, seed_jobs):
                                E, S)
     del fused_main, y_pw, y_st
 
+    t0 = time.time()
+    golden_f, golden_e = golden_path(eng, fr_so, fr_full, traces, u, drive,
+                                     tone, card, torch, F, E)
+    golden_launch_checks(eng, fr_so, fr_full, traces, golden_f, golden_e)
+    log(f"[5j golden] {time.time() - t0:.1f}s")
+
     # one entry per build: (name, runner key, the launch counts of the
     # path it runs on, how many of them are this build's)
     lib_of = {n: runners[n].plan.cuda_name for n in runners}
@@ -1987,6 +2308,7 @@ def run_all(t_start, torch, seed_jobs):
             "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"], "library_ms": None})
     kernels += engine_entries(eng, eng_checks, eng_launches)
+    kernels += golden_entries(eng, eng_checks, golden_e)
     log(f"[total] {time.time() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi())
@@ -2080,6 +2402,67 @@ def engine_main():
     finally:
         seed_pool.terminate()
         seed_pool.join()
+
+def golden_main():
+    """``--golden``: phase 5j alone, with what it needs: the device, its
+    models (the main path's and the full path's Super Overs, the pots
+    Super Over un-decomposed, the small circuits), the main and full
+    paths' production builds and the golden engines' builds, phase 4's
+    rows for the engine builds only it runs; no result line."""
+    t_start = time.time()
+    import torch
+    if not torch.cuda.is_available():
+        raise SmokeFailure("no CUDA device: this smoke run needs one GPU")
+    sys.path.insert(0, HERE)
+    from acme_tpu_torch import FusedRunner
+    from acme_tpu_torch import engine as E
+    from acme_tpu_torch import sweeps as S
+    from acme_tpu_torch.ops import build as B
+    from acme_tpu_torch.ops import fused as F
+    dev = torch.device("cuda", 0)
+    card = smi()
+    log(f"[1 device] {torch.cuda.get_device_name(0)} | nvidia-smi: {card} | "
+        f"torch {torch.__version__} CUDA {torch.version.cuda}")
+    t0 = time.time()
+    traces = golden_traces()
+    m_so, m_full, m_pots = S.build_models(
+        [S.model_spec("pots", "chain", FS), S.model_spec("level", "full", FS),
+         S.model_spec("pots", "full", FS)])
+    eng = golden_engines(copy.deepcopy(m_full), m_pots, copy.deepcopy(m_so),
+                         dev)
+    prod = S.PRODUCTION
+    fr_so = FusedRunner(m_so, lane_input_idx=(1, 2), device=dev,
+                        powerup="steady", **prod)
+    fr_full = FusedRunner(m_full, device=dev, powerup="safe",
+                          powerup_samples=POWERUP_SAMPLES, **prod,
+                          **S.lane_grid("level", L_MAIN)[4])
+    log(f"[3 model] the golden traces' models, runners and engines "
+        f"{list(eng)} in {time.time() - t0:.1f}s; {len(traces)} traces")
+    t0 = time.time()
+    with ThreadPoolExecutor(BUILD_WORKERS) as ex:
+        fused = [ex.submit(B.compile_library, r.plan) for r in (fr_so,
+                                                                 fr_full)]
+        builds = start_engine_builds(ex, eng, B)
+        for f in fused:
+            f.result()
+        log_engine_builds(builds, eng, B)
+    for r in (fr_so, fr_full):
+        B.load_kernel(r.plan)
+    log(f"[2 build] 2 fused and {len(builds)} engine builds in "
+        f"{time.time() - t0:.1f}s")
+    t0 = time.time()
+    log(f"[4 kernel vs plain] (card: {card})")
+    golden_checks(eng, traces, torch, E)
+    log(f"[4 kernel vs plain] golden engine builds {time.time() - t0:.1f}s")
+    _, drive, tone, _, _ = S.lane_grid("pots", L_MAIN)
+    u = (0.2 * np.sin(2 * np.pi * 1000 / FS * np.arange(FS)))[None, :]
+    t0 = time.time()
+    fused_l, engine_l = golden_path(eng, fr_so, fr_full, traces, u, drive,
+                                    tone, card, torch, F, E)
+    golden_launch_checks(eng, fr_so, fr_full, traces, fused_l, engine_l)
+    log(f"[5j golden] {time.time() - t0:.1f}s")
+    log(f"[total] {time.time() - t_start:.1f}s")
+
 
 def sass_sizes(path):
     """{kernel entry: instructions} of the SASS in library ``path``
@@ -2480,6 +2863,8 @@ if __name__ == "__main__":
             scaling_main()
         elif sys.argv[1:2] == ["--engine"]:
             engine_main()
+        elif sys.argv[1:2] == ["--golden"]:
+            golden_main()
         elif sys.argv[1:2] == ["--windows"]:
             windows_main(sys.argv[2:])
         elif sys.argv[1:2] == ["--ab"]:

@@ -7,8 +7,9 @@ builds the diode clipper with the port's compiler, runs the plain path on
 128 lanes x 32 samples with the level sweep's lane-scaled input and
 two-phase power-up, runs the float64 scan engine's plain version on it
 (``engine``, ``ops.newton``, ``ops.linsolve``) and checkpoints its state
-(``utils.checkpoint``), and checks that none of those modules was
-loaded.
+(``utils.checkpoint``), runs the 50-digit golden oracle
+(``utils.golden.golden_run``, mpmath) on it for 8 samples, and checks that
+none of those modules was loaded.
 """
 
 import os
@@ -66,6 +67,10 @@ SCRIPT = textwrap.dedent("""
     back = acme_tpu_torch.utils.checkpoint.load_state(path,
                                                       cm.initial_state(1))
     assert bool((back["x"] == st["x"]).all())
+    from acme_tpu_torch.utils.golden import golden_run
+    yg = golden_run(diodeclipper_model(), u[:, :8])
+    assert yg.shape == (1, 8) and bool(np.isfinite(yg).all())
+    assert float(np.abs(yg - y[:, :8].numpy()).max()) < 1e-6
     loaded = [m for m in sys.modules if refused(m)]
     assert not loaded, loaded
     print("OK")
