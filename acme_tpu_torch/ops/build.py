@@ -24,7 +24,7 @@ import time
 from .emit import write_engine_header, write_header
 
 __all__ = ["load_kernel", "load_host", "build_dir", "compile_library",
-           "compile_engine", "load_engine", "load_engine_host",
+           "compile_engine", "load_engine", "load_engine_host", "build_log",
            "NVCC_FLAGS", "HOST_FLAGS", "LAST_BUILD", "STACK_BYTES"]
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
@@ -105,9 +105,26 @@ def _compile(header, sources, prefix, host, out_dir):
     if proc.returncode != 0:
         raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n"
                            f"{proc.stdout}\n{proc.stderr}")
+    log = proc.stdout + proc.stderr
+    with open(f"{tmp}.log", "w") as f:
+        f.write(log)
+    os.replace(f"{tmp}.log", lib + ".log")
     os.replace(tmp, lib)
-    LAST_BUILD[lib] = (time.time() - t0, proc.stdout + proc.stderr)
+    LAST_BUILD[lib] = (time.time() - t0, log)
     return lib
+
+
+def build_log(lib):
+    """(seconds, compiler log) of library ``lib``'s build: this process's,
+    else the log its build left beside it (``<lib>.log``, seconds 0.0);
+    ptxas's registers, frames and spills are in it for a CUDA build."""
+    if lib in LAST_BUILD:
+        return LAST_BUILD[lib]
+    try:
+        with open(lib + ".log") as f:
+            return 0.0, f.read()
+    except OSError:
+        return 0.0, ""
 
 
 _PTR = ctypes.c_void_p
@@ -125,13 +142,15 @@ def _bind(path, cuda):
         lib.acme_resident_lanes.argtypes = [ctypes.c_int, ctypes.c_int,
                                             ctypes.POINTER(ctypes.c_int)]
         lib.acme_resident_lanes.restype = ctypes.c_int
-    # ... and the lanes of a batch (0: all)
-    lib.acme_fused_host.argtypes = common + [ctypes.c_int]
-    lib.acme_fused_host.restype = ctypes.c_int
-    lib.acme_df_op_host.argtypes = [ctypes.c_int, ctypes.c_int] + [_PTR] * 6
-    lib.acme_df_op_host.restype = ctypes.c_int
-    lib.acme_solve_host.argtypes = [ctypes.c_int] * 6 + [_PTR] * 6
-    lib.acme_solve_host.restype = ctypes.c_int
+    else:
+        # the host build's entries: the step, in batches of lanes (0: all)
+        lib.acme_fused_host.argtypes = common + [ctypes.c_int]
+        lib.acme_fused_host.restype = ctypes.c_int
+        lib.acme_df_op_host.argtypes = [ctypes.c_int, ctypes.c_int] + \
+            [_PTR] * 6
+        lib.acme_df_op_host.restype = ctypes.c_int
+        lib.acme_solve_host.argtypes = [ctypes.c_int] * 6 + [_PTR] * 6
+        lib.acme_solve_host.restype = ctypes.c_int
     return lib
 
 

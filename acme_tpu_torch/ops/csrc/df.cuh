@@ -15,12 +15,22 @@
 
 #ifdef __CUDACC__
 #define HD __host__ __device__
-#define ACME_NOINLINE __noinline__
 #define ACME_FORCEINLINE __forceinline__
 #else
 #define HD
-#define ACME_NOINLINE __attribute__((noinline))
 #define ACME_FORCEINLINE inline
+#endif
+
+// on the card: a loop of constant trip count fully unrolled (its arrays
+// then indexed by constants, so they stay in registers), and a loop kept
+// rolled (a tier's iteration loop, whose body is large); g++ does as it
+// sees fit, nothing there depends on it
+#ifdef __CUDACC__
+#define ACME_UNROLL _Pragma("unroll")
+#define ACME_ROLLED _Pragma("unroll 1")
+#else
+#define ACME_UNROLL
+#define ACME_ROLLED
 #endif
 
 // -- float32 with jax.numpy semantics ----------------------------------------
@@ -189,6 +199,7 @@ HD inline df df_poly_exp(df r) {
       -0x1.dddddep-32f, -0x1.27d27ep-35f, -0x1.7f97fap-39f, -0x1.7f97fap-42f,
       0x1.55b1ccp-45f, -0x1.10ec14p-47f, 0x1.fd5138p-52f, 0x1.ff1b14p-54f};
   df acc(ch[12], cl[12]);
+  ACME_UNROLL
   for (int k = 11; k >= 0; --k) {
     acc = df_mul(acc, r);
     float s, e;

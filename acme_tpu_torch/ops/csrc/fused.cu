@@ -15,15 +15,26 @@
 //    one thread runs one lane for the whole time loop, each thread
 //    branching on its own convergence: the TPU's group-wide early exits
 //    become per-lane loops, and no lane waits for another.
-//  * Register pressure from the 5x5 df elimination (2 floats per entry,
-//    6 right-hand columns) and the df element physics.  At the sweeps'
-//    lane counts an SM holds one or a few 32-thread blocks, so registers
-//    do not limit occupancy: the heavy tiers (polish, robust path, df
-//    rescue) are inlined and the launch bounds let a thread take all 255
-//    registers, which keeps their frames out of local memory (measured on
-//    the H100 against separate functions: 3-21 % less kernel time,
-//    PERF.md).  The df element physics stays a separate function (the
-//    header's nl_df), its frame on the stack.
+//  * The lane's working set on chip, out of local memory.  Its carry
+//    (x, z and their lo parts, the warm start, the tolerances and gates,
+//    the per-lane coefficients: step.cuh Lane) lives in the block's
+//    shared memory as [value][BLOCK], loaded once before the time loop
+//    and stored once after it, so the registers hold only the working set
+//    of the subsystem being solved.  Every function of the step, the
+//    header's element physics in float32 and in df included, is
+//    force-inlined, each evaluation mode a template parameter, so no
+//    array's address reaches a call; every fixed-size loop is unrolled
+//    and the eliminations' pivot cascades are selects (linsolve.cuh), so
+//    no array is indexed at run time.  A call or a run-time index would
+//    put its arrays (the df 5x5 elimination's matrix, the df physics' q,
+//    res and Jq, the lane's carry) in the thread's local-memory frame;
+//    ptxas reports none and no spills for the main production build
+//    (chip_smoke.py phase 2 holds it there).
+//    The launch bounds let a thread take all 255 registers: at the
+//    sweeps' lane counts an SM holds one or a few 32-thread blocks, so
+//    registers do not limit occupancy.  A build with a larger working set
+//    (the un-decomposed Super Over's 7x7 df elimination with six
+//    right-hand columns) still spills (PERF.md).
 //  * Occupancy at 4096 lanes: 4096 threads in 128-thread blocks would
 //    occupy 32 of the 132 SMs, so blocks are 32 threads (128 blocks).
 //  * Per-lane models (the TPU kernel's _Var tables): the coefficients that
@@ -62,8 +73,11 @@
 
 namespace {
 
+using acme::BLOCK;
 using acme::cmax1;
 using acme::Lane;
+using acme::NCF;
+using acme::NCI;
 using namespace acme_model;
 
 struct Args {
@@ -97,10 +111,12 @@ HD inline void join_group(LaneT& ln, const Args& a, int l, void* host) {
   }
 }
 
-// one lane's whole run: load its state, step every sample, store it back
-HD inline void run_lane(const Args& a, int l, void* host_group = nullptr) {
+// one lane's whole run: load its state into its carry (f, n: the first
+// float and int of it), step every sample, store it back
+ACME_FORCEINLINE HD void run_lane(const Args& a, int l, float* f, int* n,
+                        void* host_group = nullptr) {
   const int L = a.L;
-  Lane ln;
+  Lane ln(f, n);
   join_group(ln, a, l, host_group);
   for (int i = 0; i < NX; ++i) ln.x[i] = a.x[i * L + l], ln.xlo[i] = a.xlo[i * L + l];
   for (int i = 0; i < NNT; ++i) {
@@ -110,21 +126,19 @@ HD inline void run_lane(const Args& a, int l, void* host_group = nullptr) {
   }
   for (int i = 0; i < NPT; ++i) ln.wp[i] = a.wp[i * L + l];
   for (int i = 0; i < NDZ; ++i) ln.dzdp[i] = a.dzdp[i * L + l];
-  for (int i = 0; i < cmax1<NSUB>::v; ++i) {
+  for (int i = 0; i < NSUB; ++i) {
     ln.pmode[i] = a.pmode[i * L + l];
     ln.tol[i] = a.tol[i * L + l];
     ln.iters[i] = 0;
   }
-  for (int i = 0; i < 3 * cmax1<NSUB>::v; ++i) ln.gate[i] = a.gate[i * L + l];
+  for (int i = 0; i < 3 * NSUB; ++i) ln.gate[i] = a.gate[i * L + l];
   for (int i = 0; i < NVAR; ++i) ln.cv[i] = a.ch[i * L + l], ln.cvl[i] = a.cl[i * L + l];
-  ln.fails = 0;
-  ln.floored = 0;
-  float lv[cmax1<NU_L>::v];
-  for (int j = 0; j < NU_L; ++j) lv[j] = a.lanes[j * L + l];
+  for (int j = 0; j < NU_L; ++j) ln.lv[j] = a.lanes[j * L + l];
   constexpr int UT = cmax1<NU_T>::v, YR = cmax1<NY>::v;
+  ACME_ROLLED
   for (int t = 0; t < a.T; ++t) {
     float yv[YR];
-    acme::sample(ln, a.u + (size_t)t * UT, lv, yv);
+    acme::sample(ln, a.u + (size_t)t * UT, yv);
     for (int o = 0; o < NY; ++o) a.y[((size_t)t * YR + o) * L + l] = yv[o];
   }
   for (int i = 0; i < NX; ++i) a.xo[i * L + l] = ln.x[i], a.xloo[i * L + l] = ln.xlo[i];
@@ -140,22 +154,42 @@ HD inline void run_lane(const Args& a, int l, void* host_group = nullptr) {
   if (NNT == 0) a.zo[l] = a.z[l], a.zloo[l] = a.zlo[l], a.zwo[l] = a.zw[l];
   if (NPT == 0) a.wpo[l] = a.wp[l];
   if (NDZ == 0) a.dzdpo[l] = a.dzdp[l];
-  for (int i = 0; i < cmax1<NSUB>::v; ++i) {
+  for (int i = 0; i < NSUB; ++i) {
     a.pmodeo[i * L + l] = ln.pmode[i];
     a.iters[i * L + l] = ln.iters[i];
   }
+  // a model without subsystems: its one pmode row passes through, no
+  // iterations
+  if (NSUB == 0) a.pmodeo[l] = a.pmode[l], a.iters[l] = 0;
   a.fails[l] = ln.fails;
   a.floored[l] = ln.floored;
 }
 
+#ifndef __CUDACC__
+// the same on the host: the lane's carry in arrays of its own
+inline void run_lane_host(const Args& a, int l, void* host_group = nullptr) {
+  float f[NCF];
+  int n[NCI];
+  run_lane(a, l, f, n, host_group);
+}
+#endif
+
 #ifdef __CUDACC__
-constexpr int BLOCK = 32;
+// the block's carry in static shared memory: it must fit the 48 KB a
+// block takes without opting in
+constexpr size_t CARRY_BYTES = sizeof(float) * NCF * BLOCK +
+                               sizeof(int) * NCI * BLOCK;
+static_assert(CARRY_BYTES <= 48 * 1024,
+              "the block's carry exceeds 48 KB of static shared memory");
 // per-thread stack for the frames of the functions that stay calls
 constexpr size_t STACK_BYTES = 16384;
 
 __global__ void __launch_bounds__(BLOCK, 1) acme_fused_kernel(Args a) {
-  int l = a.lane0 + blockIdx.x * blockDim.x + threadIdx.x;
-  if (l < a.L) run_lane(a, l);
+  __shared__ float carry_f[NCF * BLOCK];
+  __shared__ int carry_n[NCI * BLOCK];
+  const int t = threadIdx.x;
+  const int l = a.lane0 + blockIdx.x * BLOCK + t;
+  if (l < a.L) run_lane(a, l, carry_f + t, carry_n + t);
 }
 #endif
 
@@ -194,6 +228,7 @@ Args make_args(const float* u, const float* lanes, const float* tol,
   return a;
 }
 
+#ifndef __CUDACC__
 // Batched solve_rows for testing linsolve.cuh (acme_solve_host): `count` systems of size n
 // (1..5, 7) with m right-hand sides, row-major J (count, n, n), R (count, m,
 // n), X (count, m, n); `use_df` reads and writes (hi, lo) pairs from the
@@ -229,6 +264,8 @@ void solve_batch(int count, int use_df, int refine, int pivot,
     }
   }
 }
+
+#endif
 
 }  // namespace
 
@@ -314,6 +351,9 @@ const char* acme_cuda_error(int e) {
 }
 #endif
 
+// The host entries (the g++ build the tests load; the CUDA library
+// carries only the card's, so nvcc compiles no host copy of the step)
+#ifndef __CUDACC__
 // The same step on the host (tests without a card), in batches of `batch`
 // lanes (0: all; a VERIFY_GROUP build's batches are whole groups), each at
 // its lane offset as on the card: lane by lane, or in a VERIFY_GROUP build
@@ -336,7 +376,7 @@ int acme_fused_host(ACME_ARGS, int batch) {
           lanes_of_group.reserve(b.Lg);
           for (int l = g0; l < g0 + b.Lg; ++l)
             lanes_of_group.emplace_back([&b, &group, l] {
-              run_lane(b, l, &group);
+              run_lane_host(b, l, &group);
             });
         } catch (const std::exception&) {
           started = false;
@@ -350,7 +390,7 @@ int acme_fused_host(ACME_ARGS, int batch) {
       }
       return 0;
     }
-    for (int l = b.lane0; l < b.lane0 + n; ++l) run_lane(b, l);
+    for (int l = b.lane0; l < b.lane0 + n; ++l) run_lane_host(b, l);
     return 0;
   });
 }
@@ -399,5 +439,7 @@ int acme_solve_host(int n, int m, int count, int use_df, int refine,
 #undef ACME_CASE
   return 1;
 }
+
+#endif
 
 }  // extern "C"

@@ -71,16 +71,51 @@ struct GroupOf<true> {
   int gpar;
 };
 
-// per-lane state carried across samples
+// a block on the card: one warp, a lane a thread (fused.cu)
+constexpr int BLOCK = 32;
+
+// The lane's carry across samples: its state (x, z and their lo parts,
+// the warm start's zw, wp and dz/dp, the polish-stall flags), its
+// tolerances and gates, its per-lane coefficients and input values,
+// floats at these offsets, then its iteration counts, ints.  On the card
+// a block's carry lives in shared memory as [value][BLOCK] (value i of
+// thread t at i * BLOCK + t: a warp's accesses to one value fall in 32
+// banks), loaded once before the time loop and stored once after it, so
+// the registers hold only the working set of the subsystem being solved;
+// on the host a lane's carry is one array of its own.
+constexpr int C_X = 0, C_XLO = C_X + NX, C_Z = C_XLO + NX, C_ZLO = C_Z + NNT,
+              C_ZW = C_ZLO + NNT, C_WP = C_ZW + NNT, C_DZDP = C_WP + NPT,
+              C_PMODE = C_DZDP + NDZ, C_TOL = C_PMODE + NSUB,
+              C_GATE = C_TOL + NSUB, C_CV = C_GATE + 3 * NSUB,
+              C_CVL = C_CV + NVAR, C_LV = C_CVL + NVAR;
+constexpr int NCF = cmax1<C_LV + NU_L>::v, NCI = cmax1<NSUB>::v;
+#ifdef __CUDA_ARCH__
+constexpr int CARRY_STRIDE = BLOCK;
+#else
+constexpr int CARRY_STRIDE = 1;
+#endif
+
+// one run of a lane's carry: its value i at p[i * CARRY_STRIDE]
+template <class T>
+struct Col {
+  T* p;
+  HD T& operator[](int i) const { return p[i * CARRY_STRIDE]; }
+};
+
+// a lane: views of its carry (f the first float of it, n the first int)
+// and its two failure counts
 struct Lane : GroupOf<VERIFY_GROUP> {
-  float x[cmax1<NX>::v], xlo[cmax1<NX>::v];
-  float z[cmax1<NNT>::v], zlo[cmax1<NNT>::v], zw[cmax1<NNT>::v];
-  float wp[cmax1<NPT>::v], dzdp[cmax1<NDZ>::v], pmode[cmax1<NSUB>::v];
-  float tol[cmax1<NSUB>::v], gate[3 * cmax1<NSUB>::v];
-  // this lane's per-lane coefficients, loaded once before the time loop
-  float cv[cmax1<NVAR>::v], cvl[cmax1<NVAR>::v];
-  int iters[cmax1<NSUB>::v];
+  Col<float> x, xlo, z, zlo, zw, wp, dzdp, pmode, tol, gate, cv, cvl, lv;
+  Col<int> iters;
   int fails, floored;
+  HD Lane(float* f, int* n)
+      : x{f + C_X * CARRY_STRIDE}, xlo{f + C_XLO * CARRY_STRIDE},
+        z{f + C_Z * CARRY_STRIDE}, zlo{f + C_ZLO * CARRY_STRIDE},
+        zw{f + C_ZW * CARRY_STRIDE}, wp{f + C_WP * CARRY_STRIDE},
+        dzdp{f + C_DZDP * CARRY_STRIDE}, pmode{f + C_PMODE * CARRY_STRIDE},
+        tol{f + C_TOL * CARRY_STRIDE}, gate{f + C_GATE * CARRY_STRIDE},
+        cv{f + C_CV * CARRY_STRIDE}, cvl{f + C_CVL * CARRY_STRIDE},
+        lv{f + C_LV * CARRY_STRIDE}, iters{n}, fails(0), floored(0) {}
 };
 
 // a lane group on the host, whose lanes run on threads of their own: a
@@ -117,7 +152,7 @@ constexpr unsigned long long GROUP_SPINS = 1ull << 27;
 // writes it again until after this barrier.  (A template, so that a build
 // without groups never instantiates the group branch.)
 template <class LaneT>
-HD inline bool group_all(LaneT& ln, bool ok) {
+ACME_FORCEINLINE HD bool group_all(LaneT& ln, bool ok) {
   if constexpr (!VERIFY_GROUP) {
     return ok;
   } else {
@@ -186,14 +221,24 @@ struct Eval {
   float resmax, scale;
 };
 
+// the df Newton system of a df-solve subsystem's df evaluation
 template <class S>
-HD inline void eval_stats(Eval<S>& e) {
+struct DfSys {
+  df res[S::NN];
+  df J[S::NN][S::NN];
+};
+
+template <class S>
+ACME_FORCEINLINE HD void eval_stats(Eval<S>& e) {
   float rm = fabsf(e.res[0]);
+  ACME_UNROLL
   for (int a = 1; a < S::NN; ++a) rm = jmax(rm, fabsf(e.res[a]));
   e.resmax = rm;
   float sc = 0.0f;
+  ACME_UNROLL
   for (int a = 0; a < S::NN; ++a) {
     float acc = fabsf(e.Jq[a * S::NQ]) * fabsf(e.q[0]);
+    ACME_UNROLL
     for (int c = 1; c < S::NQ; ++c)
       acc = acc + fabsf(e.Jq[a * S::NQ + c]) * fabsf(e.q[c]);
     sc = a == 0 ? acc : jmax(sc, acc);
@@ -203,49 +248,56 @@ HD inline void eval_stats(Eval<S>& e) {
 
 // eval_at in plain mode: q = pfull + Fq z (or pf + Fq z for the homotopy)
 template <class S>
-HD inline void eval_plain(const Ctx<S>& cx, const float* pf,
-                          const float (&z)[S::NN], Eval<S>& e, bool stats) {
-  const float *cv = cx.ln->cv, *cvl = cx.ln->cvl;
-  S::q_plain(cv, cvl, z, pf, e.q);
+ACME_FORCEINLINE HD void eval_plain(const Ctx<S>& cx, const float* pf,
+                                    const float (&z)[S::NN], Eval<S>& e,
+                                    bool stats) {
+  const Lane& ln = *cx.ln;
+  S::q_plain(ln.cv, ln.cvl, z, pf, e.q);
   S::nl(e.q, e.res, e.Jq);
-  S::jac(cv, cvl, e.Jq, &e.J[0][0]);
+  S::jac(ln.cv, ln.cvl, e.Jq, &e.J[0][0]);
   if (stats) eval_stats<S>(e);
 }
 
 // eval_at in compensated mode: q as an EFT pair, res += Jq q_lo
 template <class S>
-HD inline void eval_comp(const Ctx<S>& cx, const float (&z)[S::NN],
-                         Eval<S>& e) {
-  const float *cv = cx.ln->cv, *cvl = cx.ln->cvl;
+ACME_FORCEINLINE HD void eval_comp(const Ctx<S>& cx, const float (&z)[S::NN],
+                                   Eval<S>& e) {
+  const Lane& ln = *cx.ln;
   float qlo[S::NQ];
-  S::q_comp(cv, cvl, z, cx.pf, cx.pflo, e.q, qlo);
+  S::q_comp(ln.cv, ln.cvl, z, cx.pf, cx.pflo, e.q, qlo);
   S::nl(e.q, e.res, e.Jq);
+  ACME_UNROLL
   for (int a = 0; a < S::NN; ++a) {
     float acc = e.res[a];
+    ACME_UNROLL
     for (int c = 0; c < S::NQ; ++c) acc = acc + e.Jq[a * S::NQ + c] * qlo[c];
     e.res[a] = acc;
   }
-  S::jac(cv, cvl, e.Jq, &e.J[0][0]);
+  S::jac(ln.cv, ln.cvl, e.Jq, &e.J[0][0]);
   eval_stats<S>(e);
 }
 
 // eval_at in df mode: element physics on (hi, lo) pairs, collapsed; with
-// `sys` also the df Newton system (res_df, Jd) for the df elimination
-template <class S>
-HD inline void eval_df(const Ctx<S>& cx, const float (&z)[S::NN], Eval<S>& e,
-                       df* res_df, df (*Jd)[S::NN]) {
-  const float *cv = cx.ln->cv, *cvl = cx.ln->cvl;
+// SYS also the df Newton system for the df elimination
+template <class S, bool SYS>
+ACME_FORCEINLINE HD void eval_df(const Ctx<S>& cx, const float (&z)[S::NN],
+                                 Eval<S>& e, DfSys<S>& sys) {
+  const Lane& ln = *cx.ln;
   float qlo[S::NQ];
-  S::q_comp(cv, cvl, z, cx.pf, cx.pflo, e.q, qlo);
+  S::q_comp(ln.cv, ln.cvl, z, cx.pf, cx.pflo, e.q, qlo);
   df qd[S::NQ], rd[S::NN], Jqd[S::NN * S::NQ];
+  ACME_UNROLL
   for (int c = 0; c < S::NQ; ++c) qd[c] = df(e.q[c], qlo[c]);
   S::nl_df(qd, rd, Jqd);
+  ACME_UNROLL
   for (int a = 0; a < S::NN; ++a) e.res[a] = rd[a].hi + rd[a].lo;
+  ACME_UNROLL
   for (int i = 0; i < S::NN * S::NQ; ++i) e.Jq[i] = Jqd[i].hi + Jqd[i].lo;
-  S::jac(cv, cvl, e.Jq, &e.J[0][0]);
-  if (Jd != nullptr) {
-    for (int a = 0; a < S::NN; ++a) res_df[a] = rd[a];
-    S::jac_df(cv, cvl, Jqd, &Jd[0][0]);
+  S::jac(ln.cv, ln.cvl, e.Jq, &e.J[0][0]);
+  if constexpr (SYS) {
+    ACME_UNROLL
+    for (int a = 0; a < S::NN; ++a) sys.res[a] = rd[a];
+    S::jac_df(ln.cv, ln.cvl, Jqd, &sys.J[0][0]);
   }
   eval_stats<S>(e);
 }
@@ -254,44 +306,47 @@ HD inline void eval_df(const Ctx<S>& cx, const float (&z)[S::NN], Eval<S>& e,
 // (fused.py:1240-1254): each half computes only the nodes it needs; only a
 // build with that verdict has them (emit.py)
 template <class S>
-HD inline void eval_dfres(const Ctx<S>& cx, const float (&z)[S::NN],
-                          Eval<S>& e) {
+ACME_FORCEINLINE HD void eval_dfres(const Ctx<S>& cx,
+                                    const float (&z)[S::NN], Eval<S>& e) {
   if constexpr (VERDICT == DFRES) {
-    const float *cv = cx.ln->cv, *cvl = cx.ln->cvl;
+    const Lane& ln = *cx.ln;
     float qlo[S::NQ];
-    S::q_comp(cv, cvl, z, cx.pf, cx.pflo, e.q, qlo);
+    S::q_comp(ln.cv, ln.cvl, z, cx.pf, cx.pflo, e.q, qlo);
     df qd[S::NQ], rd[S::NN];
+    ACME_UNROLL
     for (int c = 0; c < S::NQ; ++c) qd[c] = df(e.q[c], qlo[c]);
     S::nl_df_res(qd, rd);
     S::nl_jq(e.q, e.Jq);
+    ACME_UNROLL
     for (int a = 0; a < S::NN; ++a) e.res[a] = rd[a].hi + rd[a].lo;
-    S::jac(cv, cvl, e.Jq, &e.J[0][0]);
+    S::jac(ln.cv, ln.cvl, e.Jq, &e.J[0][0]);
     eval_stats<S>(e);
   }
 }
 
-// eval_at in `mode`, with the df Newton system when `Jd` is given (df mode)
-template <class S>
-HD inline void eval_mode(const Ctx<S>& cx, const float (&z)[S::NN], int mode,
-                         Eval<S>& e, df* res_df, df (*Jd)[S::NN]) {
-  if (mode == DFM)
-    eval_df<S>(cx, z, e, res_df, Jd);
-  else if (mode == DFRES)
+// eval_at in MODE, with the df Newton system when SYS (df mode)
+template <class S, int MODE, bool SYS>
+ACME_FORCEINLINE HD void eval_mode(const Ctx<S>& cx, const float (&z)[S::NN],
+                                   Eval<S>& e, DfSys<S>& sys) {
+  if constexpr (MODE == DFM)
+    eval_df<S, SYS>(cx, z, e, sys);
+  else if constexpr (MODE == DFRES)
     eval_dfres<S>(cx, z, e);
-  else if (mode == COMPM)
+  else if constexpr (MODE == COMPM)
     eval_comp<S>(cx, z, e);
   else
     eval_plain<S>(cx, cx.pf, z, e, true);
 }
 
 template <class S>
-HD inline float clipz(float d, int i) {
+ACME_FORCEINLINE HD float clipz(float d, int i) {
   return jclip(d, -S::zclip(i), S::zclip(i));
 }
 
 template <class S>
-HD inline bool all_finite(const float (&v)[S::NN]) {
+ACME_FORCEINLINE HD bool all_finite(const float (&v)[S::NN]) {
   bool ok = true;
+  ACME_UNROLL
   for (int a = 0; a < S::NN; ++a) ok = ok && jfinite(v[a]);
   return ok;
 }
@@ -306,20 +361,24 @@ struct Solved {
 
 // gated Newton loop (fused.py:1373-1483)
 template <class S>
-HD inline void run_newton(const Ctx<S>& cx, const float (&zs)[S::NN],
-                          Solved<S>& out) {
+ACME_FORCEINLINE HD void run_newton(const Ctx<S>& cx,
+                                    const float (&zs)[S::NN],
+                                    Solved<S>& out) {
   float z[S::NN];
+  ACME_UNROLL
   for (int a = 0; a < S::NN; ++a) z[a] = zs[a], out.z[a] = zs[a];
   float prev = 3e38f, strikes = 0.0f, strikes_hi = 0.0f;
   out.r = 3e38f;
   out.g = cx.lgate;
   out.itv = (float)K_NEWTON;
+  ACME_ROLLED
   for (int it = 0; it < K_NEWTON; ++it) {
     Eval<S> e;
     eval_plain<S>(cx, cx.pf, z, e, true);
     float tol_eff = jclip(REL_TOL * e.scale, cx.ltol, 1e4f * cx.ltol);
     float gate_eff = jclip(REL_GATE * e.scale, cx.lgate, 1e4f * cx.lgate);
     float R[1][S::NN], X[1][S::NN];
+    ACME_UNROLL
     for (int a = 0; a < S::NN; ++a) R[0][a] = e.res[a];
     solve_rows<S::NN, 1, float>(e.J, R, X, 0, PIVOT);
     bool stall_any = e.resmax >= 0.995f * prev;
@@ -332,6 +391,7 @@ HD inline void run_newton(const Ctx<S>& cx, const float (&zs)[S::NN],
     bool done = (e.resmax < tol_eff) || struck || plat;
     bool bad = !jfinite(e.resmax) || !all_finite<S>(X[0]);
     bool move = !(done || bad);
+    ACME_UNROLL
     for (int a = 0; a < S::NN; ++a) out.z[a] = z[a];
     out.r = e.resmax;
     out.g = gate_eff;
@@ -339,18 +399,21 @@ HD inline void run_newton(const Ctx<S>& cx, const float (&zs)[S::NN],
       out.itv = (float)(it + 1);
       break;
     }
-    if (move)
+    if (move) {
+      ACME_UNROLL
       for (int a = 0; a < S::NN; ++a) z[a] = z[a] - clipz<S>(X[0][a], a);
+    }
     prev = e.resmax;
   }
 }
 
 // bisection homotopy continuation from (wp, zw) (fused.py:1485-1583)
 template <class S>
-HD inline void homotopy_rescue(const Ctx<S>& cx, Solved<S>& st) {
+ACME_FORCEINLINE HD void homotopy_rescue(const Ctx<S>& cx, Solved<S>& st) {
   constexpr int K2 = 16, TRIPS = 6 * 16;
   const Lane& ln = *cx.ln;
   float z_h[S::NN], z_good[S::NN];
+  ACME_UNROLL
   for (int a = 0; a < S::NN; ++a) {
     z_h[a] = st.z[a];
     z_good[a] = ln.zw[S::OFF + a];
@@ -358,8 +421,10 @@ HD inline void homotopy_rescue(const Ctx<S>& cx, Solved<S>& st) {
   float a_good = 0.0f, a_try = 1.0f, k_in = 0.0f;
   bool solved = false;
   int trips = 0;
+  ACME_ROLLED
   while (trips < TRIPS && !solved) {
     float pmix[Ctx<S>::NP], pf[S::NQ];
+    ACME_UNROLL
     for (int i = 0; i < S::NP; ++i)
       pmix[i] = ln.wp[S::POFF + i] + a_try * (cx.p[i] - ln.wp[S::POFF + i]);
     S::pf_mix(ln.cv, ln.cvl, pmix, pf);
@@ -368,14 +433,17 @@ HD inline void homotopy_rescue(const Ctx<S>& cx, Solved<S>& st) {
     float gate_eff = jclip(REL_GATE * e.scale, cx.lgate, 1e4f * cx.lgate);
     bool ok = e.resmax < gate_eff;
     float R[1][S::NN], X[1][S::NN];
+    ACME_UNROLL
     for (int a = 0; a < S::NN; ++a) R[0][a] = e.res[a];
     solve_rows<S::NN, 1, float>(e.J, R, X, 0, true);
     bool bad = !jfinite(e.resmax) || !all_finite<S>(X[0]);
     bool move = !(ok || bad);
     float z_new[S::NN];
+    ACME_UNROLL
     for (int a = 0; a < S::NN; ++a)
       z_new[a] = move ? z_h[a] - clipz<S>(X[0][a], a) : z_h[a];
     if (ok) {
+      ACME_UNROLL
       for (int a = 0; a < S::NN; ++a) z_good[a] = z_h[a];
       a_good = a_try;
       if (a_try >= 1.0f) solved = true;
@@ -384,15 +452,18 @@ HD inline void homotopy_rescue(const Ctx<S>& cx, Solved<S>& st) {
     bool exh = (k_next >= (float)K2) && !ok;
     float a_next = ok ? 1.0f : (exh ? 0.5f * (a_good + a_try) : a_try);
     if (exh) {
+      ACME_UNROLL
       for (int a = 0; a < S::NN; ++a) z_new[a] = z_good[a];
       k_next = 0.0f;
     }
+    ACME_UNROLL
     for (int a = 0; a < S::NN; ++a) z_h[a] = z_new[a];
     a_try = a_next;
     k_in = k_next;
     ++trips;
   }
   if (solved) {
+    ACME_UNROLL
     for (int a = 0; a < S::NN; ++a) st.z[a] = z_h[a];
     st.r = 0.5f * st.g;
   }
@@ -405,23 +476,30 @@ template <class S>
 ACME_FORCEINLINE HD void df_rescue(const Ctx<S>& cx, Solved<S>& st) {
   constexpr int K3 = 24;
   float zs[S::NN];
+  ACME_UNROLL
   for (int a = 0; a < S::NN; ++a) zs[a] = st.z[a];
   float rm = 3e38f;
   int k = 0;
+  ACME_ROLLED
   while (k < K3 && !(rm < st.g)) {
     Eval<S> e;
-    eval_mode<S>(cx, zs, RESCUE_MODE, e, nullptr, nullptr);
+    DfSys<S> unused;
+    eval_mode<S, RESCUE_MODE, false>(cx, zs, e, unused);
     bool ok = e.resmax < st.g;
     float R[1][S::NN], X[1][S::NN];
+    ACME_UNROLL
     for (int a = 0; a < S::NN; ++a) R[0][a] = e.res[a];
     solve_rows<S::NN, 1, float>(e.J, R, X, REFINE, true);
     bool bad = !jfinite(e.resmax) || !all_finite<S>(X[0]);
-    if (!(ok || bad))
+    if (!(ok || bad)) {
+      ACME_UNROLL
       for (int a = 0; a < S::NN; ++a) zs[a] = zs[a] - clipz<S>(X[0][a], a);
+    }
     rm = e.resmax;
     ++k;
   }
   if ((rm < st.r) || !jfinite(st.r)) {
+    ACME_UNROLL
     for (int a = 0; a < S::NN; ++a) st.z[a] = zs[a];
     st.r = rm;
   }
@@ -447,63 +525,83 @@ struct PolishEval {
 };
 
 // the shared elimination X = J \ [res | Jp] of polish_eval: M = 1 + the
-// sensitivity columns, in df for the fragile subsystems' df verdict
-template <class S, int M>
-HD inline void polish_solve(const Eval<S>& e, const df* res_df,
-                            const df (*Jd)[S::NN], const float* jp, int rf,
-                            float (&X)[M][S::NN]) {
+// sensitivity columns, in df (DFSYS) for the fragile subsystems' df
+// verdict
+template <class S, int M, bool DFSYS>
+ACME_FORCEINLINE HD void polish_solve(const Eval<S>& e, const DfSys<S>& sys,
+                                      const float* jp, int rf,
+                                      float (&X)[M][S::NN]) {
   float R[M][S::NN];
+  ACME_UNROLL
   for (int a = 0; a < S::NN; ++a) R[0][a] = e.res[a];
-  for (int b = 0; b + 1 < M; ++b)
+  ACME_UNROLL
+  for (int b = 0; b + 1 < M; ++b) {
+    ACME_UNROLL
     for (int a = 0; a < S::NN; ++a) R[1 + b][a] = jp[b * S::NN + a];
-  if (Jd != nullptr) {
-    df Jdd[S::NN][S::NN], Rd[M][S::NN], Xd[M][S::NN];
-    for (int i = 0; i < S::NN; ++i)
-      for (int j = 0; j < S::NN; ++j) Jdd[i][j] = Jd[i][j];
-    for (int a = 0; a < S::NN; ++a) Rd[0][a] = res_df[a];
-    for (int b = 1; b < M; ++b)
+  }
+  if constexpr (DFSYS) {
+    df Rd[M][S::NN], Xd[M][S::NN];
+    ACME_UNROLL
+    for (int a = 0; a < S::NN; ++a) Rd[0][a] = sys.res[a];
+    ACME_UNROLL
+    for (int b = 1; b < M; ++b) {
+      ACME_UNROLL
       for (int a = 0; a < S::NN; ++a) Rd[b][a] = df(R[b][a]);
-    solve_rows<S::NN, M, df>(Jdd, Rd, Xd, 0, true);
-    for (int j = 0; j < M; ++j)
+    }
+    solve_rows<S::NN, M, df>(sys.J, Rd, Xd, 0, true);
+    ACME_UNROLL
+    for (int j = 0; j < M; ++j) {
+      ACME_UNROLL
       for (int a = 0; a < S::NN; ++a) X[j][a] = Xd[j][a].hi + Xd[j][a].lo;
+    }
   } else {
     solve_rows<S::NN, M, float>(e.J, R, X, rf, true);
   }
 }
 
-// one evaluation + shared elimination X = J \ [res | Jp] (fused.py:1652)
-template <class S>
-HD inline void polish_eval(const Ctx<S>& cx, const float (&z)[S::NN], int mode,
-                           bool light, bool verdict, PolishEval<S>& pe) {
+// one evaluation in MODE + shared elimination X = J \ [res | Jp]
+// (fused.py:1652); LIGHT drops the columns and the refinement, VERD
+// refines as the verdict does
+template <class S, int MODE, bool LIGHT, bool VERD>
+ACME_FORCEINLINE HD void polish_eval(const Ctx<S>& cx,
+                                     const float (&z)[S::NN],
+                                     PolishEval<S>& pe) {
   constexpr int NP = Ctx<S>::NP;
-  Eval<S> e;
-  df res_df[S::NN], Jd[S::NN][S::NN];
   // a df-solve subsystem's df evaluation also builds the df system
-  const bool dfsys = S::DF_SLV && mode == DFM;
-  eval_mode<S>(cx, z, mode, e, res_df, dfsys ? Jd : nullptr);
+  constexpr bool DFSYS = S::DF_SLV && MODE == DFM;
+  Eval<S> e;
+  DfSys<S> sys;
+  eval_mode<S, MODE, DFSYS>(cx, z, e, sys);
   pe.lgate_eff = jclip(REL_GATE * e.scale, cx.lgate, 1e4f * cx.lgate);
   pe.gate_eff_f = jclip(REL_GATE_F * e.scale, cx.gate_v, 1e4f * cx.gate_v);
   pe.tol_pol = jclip(REL_TOL_POL * e.scale, cx.ptol, 1e4f * cx.ptol);
   pe.ltol_eff = jclip(REL_TOL * e.scale, cx.ltol, 1e4f * cx.ltol);
   pe.resmax = e.resmax;
-  const int rf = light ? 0 : (verdict ? VREFINE : REFINE);
-  const df(*Jdp)[S::NN] = dfsys ? Jd : nullptr;
+  const int rf = LIGHT ? 0 : (VERD ? VREFINE : REFINE);
   // the sensitivity columns ride along while the origin is maintained
-  if (EXTRAP && S::NP > 0 && !light) {
+  if constexpr (EXTRAP && S::NP > 0 && !LIGHT) {
     float jp[NP * S::NN], X[1 + NP][S::NN];
     S::jp(cx.ln->cv, cx.ln->cvl, e.Jq, jp);
-    polish_solve<S, 1 + NP>(e, res_df, Jdp, jp, rf, X);
+    polish_solve<S, 1 + NP, DFSYS>(e, sys, jp, rf, X);
+    ACME_UNROLL
     for (int a = 0; a < S::NN; ++a) pe.dz[a] = X[0][a];
-    for (int b = 0; b < NP; ++b)
+    ACME_UNROLL
+    for (int b = 0; b < NP; ++b) {
+      ACME_UNROLL
       for (int a = 0; a < S::NN; ++a) pe.cols[b][a] = X[1 + b][a];
+    }
   } else {
     float X[1][S::NN];
-    polish_solve<S, 1>(e, res_df, Jdp, nullptr, rf, X);
+    polish_solve<S, 1, DFSYS>(e, sys, nullptr, rf, X);
+    ACME_UNROLL
     for (int a = 0; a < S::NN; ++a) pe.dz[a] = X[0][a];
     // NaN placeholder columns: a non-finite verdict then keeps the old
     // sensitivity (the |cols| < 1e6 install bound rejects NaN)
-    for (int b = 0; b < NP; ++b)
+    ACME_UNROLL
+    for (int b = 0; b < NP; ++b) {
+      ACME_UNROLL
       for (int a = 0; a < S::NN; ++a) pe.cols[b][a] = NAN;
+    }
   }
   pe.fin = jfinite(e.resmax) && all_finite<S>(pe.dz);
 }
@@ -517,11 +615,12 @@ struct PolishSt {
 
 // one verdict pass (fused.py:1898-1948); returns the pre-step residual
 template <class S>
-HD inline float vd_pass(const Ctx<S>& cx, PolishSt<S>& st) {
+ACME_FORCEINLINE HD float vd_pass(const Ctx<S>& cx, PolishSt<S>& st) {
   PolishEval<S> pe;
-  polish_eval<S>(cx, st.z, S::DF_SLV ? (int)DFM : VERDICT, false, true, pe);
+  polish_eval<S, S::DF_SLV ? (int)DFM : VERDICT, false, true>(cx, st.z, pe);
   if (pe.fin) st.tp = pe.tol_pol;
   bool vstep = S::DF_SLV ? pe.fin : (pe.fin && pe.resmax >= pe.tol_pol);
+  ACME_UNROLL
   for (int a = 0; a < S::NN; ++a) {
     float dzc = clipz<S>(pe.dz[a], a);
     float hi2, lo2;
@@ -533,8 +632,11 @@ HD inline float vd_pass(const Ctx<S>& cx, PolishSt<S>& st) {
     st.rm = pe.resmax;
     st.lg = pe.lgate_eff;
     st.gf = pe.gate_eff_f;
-    for (int b = 0; b < Ctx<S>::NP; ++b)
+    ACME_UNROLL
+    for (int b = 0; b < Ctx<S>::NP; ++b) {
+      ACME_UNROLL
       for (int a = 0; a < S::NN; ++a) st.cols[b][a] = pe.cols[b][a];
+    }
   }
   st.k = st.k + 1.0f;
   return pe.resmax;
@@ -545,9 +647,13 @@ HD inline float vd_pass(const Ctx<S>& cx, PolishSt<S>& st) {
 template <class S>
 ACME_FORCEINLINE HD void polish_all(const Ctx<S>& cx,
                                     const float (&zs)[S::NN], PolishSt<S>& st) {
+  ACME_UNROLL
   for (int a = 0; a < S::NN; ++a) st.z[a] = zs[a], st.zlo[a] = 0.0f;
-  for (int b = 0; b < Ctx<S>::NP; ++b)
+  ACME_UNROLL
+  for (int b = 0; b < Ctx<S>::NP; ++b) {
+    ACME_UNROLL
     for (int a = 0; a < S::NN; ++a) st.cols[b][a] = 0.0f;
+  }
   st.rm = 3e38f;
   st.rm1 = 3e38f;
   st.tl1 = cx.ltol;
@@ -558,16 +664,18 @@ ACME_FORCEINLINE HD void polish_all(const Ctx<S>& cx,
   st.pstall = 0.0f;
   st.k = 0.0f;
   const int nfix = P_FIX < P_POL ? P_FIX : P_POL;
+  ACME_ROLLED
   for (int it = 0;; ++it) {
     if (it >= nfix &&
         !(st.k < (float)P_POL && !((st.rm < st.tp) || (st.pfrz > 0.5f))))
       break;
     PolishEval<S> pe;
     // with a verdict the loop's steps drop the columns and refinement
-    polish_eval<S>(cx, st.z, POL_MODE, VERDICT != NONE, false, pe);
+    polish_eval<S, POL_MODE, VERDICT != NONE, false>(cx, st.z, pe);
     bool nc = pe.fin && (pe.resmax >= 0.7f * st.rm);
     if (nc) st.pfrz = 1.0f;
     bool unclip = true;
+    ACME_UNROLL
     for (int a = 0; a < S::NN; ++a)
       unclip = unclip && (fabsf(pe.dz[a]) < 0.9f * S::zclip(a));
     if (nc && unclip && (pe.resmax >= pe.tol_pol) &&
@@ -575,8 +683,10 @@ ACME_FORCEINLINE HD void polish_all(const Ctx<S>& cx,
       st.pstall = 1.0f;
     bool first = st.k == 0.0f;
     bool act = pe.fin && (pe.resmax >= pe.tol_pol) && (first || st.pfrz < 0.5f);
-    if (act)
+    if (act) {
+      ACME_UNROLL
       for (int a = 0; a < S::NN; ++a) st.z[a] = st.z[a] - clipz<S>(pe.dz[a], a);
+    }
     if (first) {
       st.rm1 = pe.resmax;
       st.tl1 = pe.ltol_eff;
@@ -585,24 +695,29 @@ ACME_FORCEINLINE HD void polish_all(const Ctx<S>& cx,
     st.lg = pe.lgate_eff;
     st.gf = pe.gate_eff_f;
     st.tp = pe.tol_pol;
-    for (int b = 0; b < Ctx<S>::NP; ++b)
+    ACME_UNROLL
+    for (int b = 0; b < Ctx<S>::NP; ++b) {
+      ACME_UNROLL
       for (int a = 0; a < S::NN; ++a) st.cols[b][a] = pe.cols[b][a];
+    }
     st.k = st.k + 1.0f;
   }
   if constexpr (VERDICT != NONE) {
-    float rm_prev = vd_pass<S>(cx, st);
-    if constexpr (S::FOLD) {
-      for (int i = 0; i < 9; ++i) {
-        if (!((rm_prev >= VTGT) && jfinite(rm_prev))) break;
-        PolishSt<S> st2 = st;
-        float rm_df = vd_pass<S>(cx, st2);
-        bool act = rm_df <= 0.9f * rm_prev;
-        rm_prev = act ? rm_df : 0.0f;
-        if (act) {
-          st = st2;
-        } else {
-          st.k = st2.k;
-        }
+    // the verdict pass, then with FOLD up to nine fold passes while the
+    // residual stays above VTGT, each kept where it takes the residual
+    // down by a tenth: one pass in the code
+    float rm_prev = 0.0f;
+    ACME_ROLLED
+    for (int i = 0; i <= (S::FOLD ? 9 : 0); ++i) {
+      if (i > 0 && !((rm_prev >= VTGT) && jfinite(rm_prev))) break;
+      PolishSt<S> st2 = st;
+      float rm_df = vd_pass<S>(cx, st2);
+      bool act = i == 0 || rm_df <= 0.9f * rm_prev;
+      rm_prev = act ? rm_df : 0.0f;
+      if (act) {
+        st = st2;
+      } else {
+        st.k = st2.k;
       }
     }
   }
@@ -610,9 +725,12 @@ ACME_FORCEINLINE HD void polish_all(const Ctx<S>& cx,
 
 // -- one subsystem's per-sample solve (fused.py:1072-2266) --------------------
 
+// its p from x, u and the sample's z so far (the carry's z, which holds
+// the earlier subsystems' solutions of this sample), its solve, and its
+// part of z, the warm start and the counters written back to the carry
 template <class S>
-HD inline void solve_sub(Lane& ln, const float* u, float* z_all,
-                         float* z_lo_all, bool& any_fail, bool& any_floor) {
+ACME_FORCEINLINE HD void solve_sub(Lane& ln, const float* u, bool& any_fail,
+                                   bool& any_floor) {
   constexpr int NN = S::NN, NP = Ctx<S>::NP;
   Ctx<S> cx;
   cx.ln = &ln;
@@ -621,21 +739,24 @@ HD inline void solve_sub(Lane& ln, const float* u, float* z_all,
   cx.gate_v = ln.gate[NSUB + S::IDX];
   cx.ptol = ln.gate[2 * NSUB + S::IDX];
   if constexpr (DF_STATE)
-    S::p_of(ln.cv, ln.cvl, ln.x, ln.xlo, u, z_all, z_lo_all, cx.p);
+    S::p_of(ln.cv, ln.cvl, ln.x, ln.xlo, u, ln.z, ln.zlo, cx.p);
   else
-    S::p_plain(ln.cv, ln.cvl, ln.x, u, z_all, cx.p);
+    S::p_plain(ln.cv, ln.cvl, ln.x, u, ln.z, cx.p);
   if constexpr (COMP) {
     S::pfull(ln.cv, ln.cvl, cx.p, cx.pf, cx.pflo);
   } else {
     S::pf_mix(ln.cv, ln.cvl, cx.p, cx.pf);
+    ACME_UNROLL
     for (int c = 0; c < S::NQ; ++c) cx.pflo[c] = 0.0f;
   }
   // extrapolated warm start, jump capped at 4 trust regions (with
   // extrapolate "track" or False the start is zw itself)
   float z0[NN];
+  ACME_UNROLL
   for (int i1 = 0; i1 < NN; ++i1) {
     if constexpr (EXTRAP_USE && S::NP > 0) {
       float acc = 0.0f;
+      ACME_UNROLL
       for (int i2 = 0; i2 < S::NP; ++i2) {
         float term = ln.dzdp[S::DOFF + i1 * S::NP + i2] *
                      (cx.p[i2] - ln.wp[S::POFF + i2]);
@@ -659,42 +780,68 @@ HD inline void solve_sub(Lane& ln, const float* u, float* z_all,
     // unguarded fast path with the already-converged guard (no step with
     // polish_only)
     float zs[NN];
+    ACME_UNROLL
     for (int a = 0; a < NN; ++a) zs[a] = z0[a];
+    ACME_ROLLED
     for (int f = 0; f < FAST_ITERS; ++f) {
       Eval<S> e;
       eval_plain<S>(cx, cx.pf, zs, e, false);
       float rmf = fabsf(e.res[0]);
+      ACME_UNROLL
       for (int a = 1; a < NN; ++a) rmf = jmax(rmf, fabsf(e.res[a]));
       float R[1][NN], X[1][NN];
+      ACME_UNROLL
       for (int a = 0; a < NN; ++a) R[0][a] = e.res[a];
       solve_rows<NN, 1, float>(e.J, R, X, 0, PIVOT);
       bool okf = all_finite<S>(X[0]) && (rmf >= cx.ltol);
-      if (okf)
+      if (okf) {
+        ACME_UNROLL
         for (int a = 0; a < NN; ++a) zs[a] = zs[a] - clipz<S>(X[0][a], a);
+      }
     }
-    polish_all<S>(cx, zs, st);
-    itv = (float)FAST_ITERS + st.k;
-    const float keep_thr = KEEP_TOL ? st.tp : st.gf;
-    bool ok1 = (st.rm < keep_thr) || ((st.rm1 < st.tl1) && (st.pstall > 0.5f));
-    if (VERIFY_ALWAYS || (VERIFY_GROUP ? !group_all(ln, ok1) : !ok1)) {
-      // the redo: for the lanes that failed the keep test ("merge"), for
-      // every lane of a group with a lane that failed it ("group"), or for
-      // every lane ("always")
-      Solved<S> sv;
-      full_solve<S>(cx, zs, sv);
-      PolishSt<S> st2;
-      polish_all<S>(cx, sv.z, st2);
-      for (int a = 0; a < NN; ++a) st.z[a] = st2.z[a], st.zlo[a] = st2.zlo[a];
-      for (int b = 0; b < NP; ++b)
-        for (int a = 0; a < NN; ++a) st.cols[b][a] = st2.cols[b][a];
-      st.rm = st2.rm;
-      st.gf = st2.gf;
-      st.pstall = st2.pstall;
-      itv = itv + (sv.itv + st2.k);
+    // the polish from the fast path's point, and for a lane that fails
+    // the keep test ("merge"), every lane of a group with a lane that
+    // fails it ("group") or every lane ("always") the redo: the robust
+    // path from the same start, then the polish again (one polish in the
+    // code)
+    float zp[NN], sv_itv = 0.0f;
+    ACME_UNROLL
+    for (int a = 0; a < NN; ++a) zp[a] = zs[a];
+    ACME_ROLLED
+    for (int pass = 0; pass < 2; ++pass) {
+      PolishSt<S> sp;
+      polish_all<S>(cx, zp, sp);
+      if (pass == 0) {
+        st = sp;
+        itv = (float)FAST_ITERS + st.k;
+        const float keep_thr = KEEP_TOL ? st.tp : st.gf;
+        bool ok1 =
+            (st.rm < keep_thr) || ((st.rm1 < st.tl1) && (st.pstall > 0.5f));
+        if (!(VERIFY_ALWAYS || (VERIFY_GROUP ? !group_all(ln, ok1) : !ok1)))
+          break;
+        Solved<S> sv;
+        full_solve<S>(cx, zs, sv);
+        ACME_UNROLL
+        for (int a = 0; a < NN; ++a) zp[a] = sv.z[a];
+        sv_itv = sv.itv;
+      } else {
+        ACME_UNROLL
+        for (int a = 0; a < NN; ++a) st.z[a] = sp.z[a], st.zlo[a] = sp.zlo[a];
+        ACME_UNROLL
+        for (int b = 0; b < NP; ++b) {
+          ACME_UNROLL
+          for (int a = 0; a < NN; ++a) st.cols[b][a] = sp.cols[b][a];
+        }
+        st.rm = sp.rm;
+        st.gf = sp.gf;
+        st.pstall = sp.pstall;
+        itv = itv + (sv_itv + sp.k);
+      }
     }
   }
   // acceptance, floor certificate, plausibility substitution
   bool z_implaus = false;
+  ACME_UNROLL
   for (int a = 0; a < NN; ++a)
     z_implaus = z_implaus || !jfinite(st.z[a]) || (fabsf(st.z[a]) > 1e4f);
   bool conv = (st.rm < st.gf) || ((st.pstall > 0.5f) && !z_implaus);
@@ -706,54 +853,66 @@ HD inline void solve_sub(Lane& ln, const float* u, float* z_all,
   ln.pmode[S::IDX] = st.pstall;
   ln.iters[S::IDX] += (int)itv;
   bool zsub = fail_k && implaus;
+  ACME_UNROLL
   for (int a = 0; a < NN; ++a) {
-    z_all[S::OFF + a] = zsub ? ln.zw[S::OFF + a] : st.z[a];
-    z_lo_all[S::OFF + a] = zsub ? 0.0f : st.zlo[a];
+    ln.z[S::OFF + a] = zsub ? ln.zw[S::OFF + a] : st.z[a];
+    ln.zlo[S::OFF + a] = zsub ? 0.0f : st.zlo[a];
   }
   bool ok = !implaus;
-  if (EXTRAP && S::NP > 0) {
+  if constexpr (EXTRAP && S::NP > 0) {
     bool okd = ok && conv;
-    for (int b = 0; b < S::NP; ++b)
+    ACME_UNROLL
+    for (int b = 0; b < S::NP; ++b) {
+      ACME_UNROLL
       for (int a = 0; a < NN; ++a) okd = okd && (fabsf(st.cols[b][a]) < 1e6f);
+    }
     if (ok) {
+      ACME_UNROLL
       for (int a = 0; a < NN; ++a) ln.zw[S::OFF + a] = st.z[a];
+      ACME_UNROLL
       for (int i = 0; i < S::NP; ++i) ln.wp[S::POFF + i] = cx.p[i];
     }
-    if (okd)
-      for (int a = 0; a < NN; ++a)
+    if (okd) {
+      ACME_UNROLL
+      for (int a = 0; a < NN; ++a) {
+        ACME_UNROLL
         for (int i = 0; i < S::NP; ++i)
           ln.dzdp[S::DOFF + a * S::NP + i] = -st.cols[i][a];
+      }
+    }
   } else if (ok) {
     // the position origin follows even without extrapolation
+    ACME_UNROLL
     for (int a = 0; a < NN; ++a) ln.zw[S::OFF + a] = st.z[a];
+    ACME_UNROLL
     for (int i = 0; i < S::NP; ++i) ln.wp[S::POFF + i] = cx.p[i];
   }
 }
 
-// one sample: subsystems in chain order, then output row and state update
-HD inline void sample(Lane& ln, const float* u_t, const float* lane_vals,
-                      float* y) {
+// one sample: subsystems in chain order (each writes its part of the
+// carry's z in place), then output row and state update
+ACME_FORCEINLINE HD void sample(Lane& ln, const float* u_t, float* y) {
   float u[cmax1<NU>::v];
-  u_full(u_t, lane_vals, u);
-  float z_all[cmax1<NNT>::v], z_lo_all[cmax1<NNT>::v];
-  for (int i = 0; i < NNT; ++i) z_all[i] = ln.z[i], z_lo_all[i] = ln.zlo[i];
+  u_full(u_t, ln.lv, u);
   bool any_fail = false, any_floor = false;
-#define ACME_SOLVE(S) solve_sub<S>(ln, u, z_all, z_lo_all, any_fail, any_floor);
+#define ACME_SOLVE(S) solve_sub<S>(ln, u, any_fail, any_floor);
   ACME_FOR_EACH_SUB(ACME_SOLVE)
 #undef ACME_SOLVE
   float xn[cmax1<NX>::v], xnlo[cmax1<NX>::v];
   if constexpr (DF_STATE) {
-    output_row(ln.cv, ln.cvl, ln.x, ln.xlo, u, z_all, z_lo_all, y);
-    state_update(ln.cv, ln.cvl, ln.x, ln.xlo, u, z_all, z_lo_all, xn, xnlo);
+    output_row(ln.cv, ln.cvl, ln.x, ln.xlo, u, ln.z, ln.zlo, y);
+    state_update(ln.cv, ln.cvl, ln.x, ln.xlo, u, ln.z, ln.zlo, xn, xnlo);
   } else {
     // plain read-outs; state and z without lo parts
-    output_plain(ln.cv, ln.cvl, ln.x, u, z_all, y);
-    state_plain(ln.cv, ln.cvl, ln.x, u, z_all, xn);
+    output_plain(ln.cv, ln.cvl, ln.x, u, ln.z, y);
+    state_plain(ln.cv, ln.cvl, ln.x, u, ln.z, xn);
+    ACME_UNROLL
     for (int i = 0; i < NX; ++i) xnlo[i] = 0.0f;
-    for (int i = 0; i < NNT; ++i) z_lo_all[i] = 0.0f;
+    ACME_UNROLL
+    for (int i = 0; i < NNT; ++i) ln.zlo[i] = 0.0f;
   }
+  ACME_UNROLL
   for (int i = 0; i < NX; ++i) ln.x[i] = xn[i], ln.xlo[i] = xnlo[i];
-  for (int i = 0; i < NNT; ++i) ln.z[i] = z_all[i], ln.zlo[i] = z_lo_all[i];
   if (NSUB > 0) {
     ln.fails += any_fail ? 1 : 0;
     ln.floored += any_floor ? 1 : 0;

@@ -19,6 +19,14 @@ its instruction stream (``FusedRunner._build``, fused.py:852-1003):
   The element code is branch-free in runtime values by design
   (``acme_tpu/elements.py:5-9``), so one recording is the whole function.
 
+Every function of the header is force-inlined into the step, so its
+arrays are the caller's, indexed by constants, and stay in registers (a
+call would take their addresses and put them in the thread's local-memory
+frame; the Jacobian's constant entries then fold into the step).  The
+lane's carry (x, z, their lo parts, the per-lane coefficients and input
+values) is read through a view of its place in the block's shared
+memory, the template parameter ``C``.
+
 The file name carries a hash of its own text.
 """
 
@@ -381,9 +389,8 @@ def _emit_fn(name, g, res, Jq, nq, mode):
             lines.append(f"  Jq[{a * nq + c}] = {ref(row[c])};")
     sig = ", ".join([f"const {T}* q"] + [f"{T}* res"] * (res is not None)
                     + [f"{T}* Jq"] * (Jq is not None))
-    attr = {"df": "ACME_NOINLINE HD static",
-            "real": "template <class R> HD static inline"}.get(
-                mode, "HD static inline")
+    attr = {"real": "template <class R> HD static inline"}.get(
+        mode, "ACME_FORCEINLINE HD static")
     return f"  {attr} void {name}({sig}) {{\n" + "\n".join(
         "  " + ln for ln in lines) + "\n  }\n"
 
@@ -391,8 +398,15 @@ def _emit_fn(name, g, res, Jq, nq, mode):
 # -- EFT dots and plain dots ---------------------------------------------------
 
 # the parameters through which the generated functions read the lane's
-# per-lane coefficients (hi and lo rows of the tables)
-CV = "const float* cv, const float* cvl"
+# per-lane coefficients (hi and lo rows of the tables): views of the
+# lane's carry (csrc/step.cuh Col), a template parameter C of every
+# function that takes them, which also reads x, xlo, z, zlo and the
+# lane's input values there
+CV = "const C& cv, const C& cvl"
+# the attributes of a generated function that takes them: force-inlined,
+# so no array of the caller has its address taken by a call
+FN = "template <class C> ACME_FORCEINLINE HD static"
+GFN = "template <class C> ACME_FORCEINLINE HD"
 
 
 def _czero(cf):
@@ -476,12 +490,12 @@ def _sub_struct(plan, k, s):
     o.append(f"  static constexpr bool DF_SLV = "
              f"{str(s['df_slv']).lower()}, FOLD = {str(s['fold']).lower()};")
     zc = ", ".join(_f(v) for v in s["zclip"])
-    o.append(f"  HD static inline float zclip(int i) {{ const float c[{nn}] = "
+    o.append(f"  ACME_FORCEINLINE HD static float zclip(int i) {{ "
+             f"const float c[{nn}] = "
              f"{{{zc}}}; return c[i]; }}")
     # p = Dq x + Eq u + Fqprev z as EFT dots (fused.py:1088-1112)
-    o.append(f"  HD static inline void p_of({CV}, const float* x, "
-             "const float* xlo, const float* u, const float* z, "
-             "const float* zlo, float* p) {")
+    o.append(f"  {FN} void p_of({CV}, const C& x, const C& xlo, "
+             "const float* u, const C& z, const C& zlo, float* p) {")
     for i in range(np_):
         if s["p_rows"][i]:
             o.append("    { float hi = 0.0f, lo = 0.0f;")
@@ -495,15 +509,15 @@ def _sub_struct(plan, k, s):
     o.append("  }")
     # the same p as one plain float32 sum, for df_state=False
     # (fused.py:1107-1110)
-    o.append(f"  HD static inline void p_plain({CV}, const float* x, "
-             "const float* u, const float* z, float* p) {")
+    o.append(f"  {FN} void p_plain({CV}, const C& x, const float* u, "
+             "const C& z, float* p) {")
     for i in range(np_):
         expr = _dotv_rows([(s["dq"][i], xs), (s["eq"][i], us),
                            (s["fqprev"][i], zs)])
         o.append(f"    p[{i}] = {expr};")
     o.append("  }")
     # pfull = q0 + Pexp p as an EFT pair (fused.py:1113-1133)
-    o.append(f"  HD static inline void pfull({CV}, const float* p, "
+    o.append(f"  {FN} void pfull({CV}, const float* p, "
              "float* pf, float* pflo) {")
     ps = [f"p[{i}]" for i in range(np_)]
     for ci in range(nq):
@@ -516,7 +530,7 @@ def _sub_struct(plan, k, s):
     # pf = q0 + Pexp p, plain float32: the homotopy's at its mixed p
     # (fused.py:1520-1528) and, with compensated=False, the sample's
     # (fused.py:1134-1140)
-    o.append(f"  HD static inline void pf_mix({CV}, const float* pm, "
+    o.append(f"  {FN} void pf_mix({CV}, const float* pm, "
              "float* pf) {")
     pms = [f"pm[{i}]" for i in range(np_)]
     for ci in range(nq):
@@ -527,7 +541,7 @@ def _sub_struct(plan, k, s):
     o.append("  }")
     # q = pf + Fq z, plain (fused.py:1213-1219)
     zz = [f"z[{i}]" for i in range(nn)]
-    o.append(f"  HD static inline void q_plain({CV}, const float* z, "
+    o.append(f"  {FN} void q_plain({CV}, const float* z, "
              "const float* pf, float* q) {")
     for ci in range(nq):
         acc = _dotv_expr(s["fq"][ci], zz)
@@ -535,7 +549,7 @@ def _sub_struct(plan, k, s):
                                        else f"({acc}) + pf[{ci}]") + ";")
     o.append("  }")
     # q as an EFT pair (fused.py:1194-1212)
-    o.append(f"  HD static inline void q_comp({CV}, const float* z, "
+    o.append(f"  {FN} void q_comp({CV}, const float* z, "
              "const float* pf, const float* pflo, float* q, float* qlo) {")
     for ci in range(nq):
         o.append(f"    {{ float hi = pf[{ci}], lo = pflo[{ci}];")
@@ -544,7 +558,7 @@ def _sub_struct(plan, k, s):
         o.append(f"      q[{ci}] = hi; qlo[{ci}] = lo; }}")
     o.append("  }")
     # J = Jq Fq in float32 and in df (fused.py:1270-1300)
-    o.append(f"  HD static inline void jac({CV}, const float* Jq, "
+    o.append(f"  {FN} void jac({CV}, const float* Jq, "
              "float* J) {")
     for a in range(nn):
         for b in range(nn):
@@ -557,7 +571,7 @@ def _sub_struct(plan, k, s):
                 acc = term if acc is None else f"({acc}) + {term}"
             o.append(f"    J[{a * nn + b}] = {acc or '0.0f'};")
     o.append("  }")
-    o.append(f"  HD static inline void jac_df({CV}, const df* Jq, "
+    o.append(f"  {FN} void jac_df({CV}, const df* Jq, "
              "df* J) {")
     for a in range(nn):
         for b in range(nn):
@@ -571,7 +585,7 @@ def _sub_struct(plan, k, s):
             o.append(f"    J[{a * nn + b}] = {acc or 'df(0.0f)'};")
     o.append("  }")
     # sensitivity columns Jq Pexp, cols[b*NN + a] (fused.py:1692-1706)
-    o.append(f"  HD static inline void jp({CV}, const float* Jq, "
+    o.append(f"  {FN} void jp({CV}, const float* Jq, "
              "float* cols) {")
     for b in range(np_):
         for a in range(nn):
@@ -641,7 +655,7 @@ def model_header(plan):
              f"REL_GATE = {_f(plan.rel_gate)}, "
              f"REL_GATE_F = {_f(plan.rel_gate_f)}, "
              f"REL_TOL_POL = {_f(plan.rel_tol_pol)};")
-    o.append("HD inline void u_full(const float* ut, const float* lanes, "
+    o.append(f"{GFN} void u_full(const float* ut, const C& lanes, "
              "float* u) {")
     for jj, gi in enumerate(plan.time_idx):
         o.append(f"  u[{gi}] = ut[{jj}];")
@@ -658,9 +672,8 @@ def model_header(plan):
     zs = [f"z[{i}]" for i in range(plan.nn_total)]
     zlos = [f"zlo[{i}]" for i in range(plan.nn_total)]
     # EFT output row and state update (fused.py:2273-2322)
-    o.append(f"HD inline void output_row({CV}, const float* x, "
-             "const float* xlo, const float* u, const float* z, "
-             "const float* zlo, float* y) {")
+    o.append(f"{GFN} void output_row({CV}, const C& x, const C& xlo, "
+             "const float* u, const C& z, const C& zlo, float* y) {")
     for oi in range(plan.ny):
         hi0, lo0 = _hi_lo(plan.y0_sp[oi])
         o.append(f"  {{ float hi = {hi0}, lo = {lo0};")
@@ -670,9 +683,9 @@ def model_header(plan):
             o.append("    " + ln)
         o.append(f"    y[{oi}] = hi + lo; }}")
     o.append("}")
-    o.append(f"HD inline void state_update({CV}, const float* x, "
-             "const float* xlo, const float* u, const float* z, "
-             "const float* zlo, float* xn, float* xnlo) {")
+    o.append(f"{GFN} void state_update({CV}, const C& x, const C& xlo, "
+             "const float* u, const C& z, const C& zlo, float* xn, "
+             "float* xnlo) {")
     for xi in range(plan.nx):
         hi0, lo0 = _hi_lo(plan.x0_sp[xi])
         o.append(f"  {{ float hi = {hi0}, lo = {lo0};")
@@ -683,15 +696,15 @@ def model_header(plan):
         o.append(f"    two_sum(hi, lo, xn[{xi}], xnlo[{xi}]); }}")
     o.append("}")
     # plain float32 read-outs for df_state=False (fused.py:2291-2334)
-    o.append(f"HD inline void output_plain({CV}, const float* x, "
-             "const float* u, const float* z, float* y) {")
+    o.append(f"{GFN} void output_plain({CV}, const C& x, const float* u, "
+             "const C& z, float* y) {")
     for oi in range(plan.ny):
         expr = _dotv_rows([(plan.dy[oi], xs), (plan.ey[oi], us),
                            (plan.fy[oi], zs)], _cval(plan.y0[oi]))
         o.append(f"  y[{oi}] = {expr};")
     o.append("}")
-    o.append(f"HD inline void state_plain({CV}, const float* x, "
-             "const float* u, const float* z, float* xn) {")
+    o.append(f"{GFN} void state_plain({CV}, const C& x, const float* u, "
+             "const C& z, float* xn) {")
     for xi in range(plan.nx):
         expr = _dotv_rows([(plan.a[xi], xs), (plan.b[xi], us),
                            (plan.c[xi], zs)], _cval(plan.x0[xi]))

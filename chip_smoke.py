@@ -47,8 +47,11 @@ Phases, each printed with its seconds:
      subsystem), birdie, the two un-decomposed Super Overs (the clipper's
      and the main path's builds serve their traces too), with ptxas's
      registers, stack frame and spills and the SASS size of each kernel
-     entry; meanwhile, in worker processes on the host, the presets
-     path's float64 references;
+     entry; for the main path's production build also the functions the
+     inliner left as calls and its SASS loads and stores of local memory
+     (LDL, STL), and a failure if its kernel entry has more stack frame
+     than MAIN_FRAME_BYTES or any spill store; meanwhile, in worker
+     processes on the host, the presets path's float64 references;
   4. kernel against its plain torch version on the card: the diode
      clipper (128 lanes x 256 samples), birdie with its volume pot as a
      lane input (128 x 32), the Super Over (4096 x 32 from the seeds),
@@ -191,7 +194,8 @@ Four runs alone, with no result line:
      the full path's from where its power-up window left it over 2048),
      one launch each: kernel ms, aggregate lane-samples per second, and
      the first 4096 lanes bit for bit as the 4096-lane launch; ptxas's
-     numbers and the SASS size of each build; then the same for the
+     numbers, the calls the inliner left, the SASS size and its LDL and
+     STL of each build; then the same for the
      engine's main build over 4096 samples, its lanes and state the 18
      parity lanes' values and steady seeds tiled (a worker process
      computes the seeds from the start);
@@ -298,6 +302,10 @@ SCALING_SAMPLES = 4096
 AB_MAIN_WINDOWS = 2
 # nvcc processes at a time
 BUILD_WORKERS = 12
+# the main path's production build: its kernel entry's ptxas stack frame
+# may not exceed this many bytes, and it may not spill (nothing of its
+# working set belongs in local memory, csrc/fused.cu)
+MAIN_FRAME_BYTES = 0
 # the float64 scan engine: the references' tolerance and the seeds'
 # (bench.py:127-146); its kernel held to its plain version at this dB of
 # each lane's peak; its path's parity gates against the committed float64
@@ -2005,12 +2013,9 @@ def run_all(t_start, torch, seed_jobs, golden_pool):
         libs = {key: f.result() for key, (_, f) in builds.items()}
     for key, path in libs.items():
         name = builds[key][0]
-        secs, out = B.LAST_BUILD.get(path, (0.0, "(cached)"))
+        secs, out = B.build_log(path)
         # the entry's registers and frame, and any function that spills
-        regs = [ln.strip() for ln in out.splitlines()
-                if "Used" in ln or ("stack frame" in ln and not
-                                    ln.strip().startswith("0 bytes stack "
-                                                          "frame, 0 bytes"))]
+        regs = ptxas_lines(out)
         # without recursion no call chain needs more stack than the sum
         # of every function's frame: it must fit the limit the launch sets
         frames = sum(int(b) for b in re.findall(r"(\d+) bytes stack frame",
@@ -2025,6 +2030,11 @@ def run_all(t_start, torch, seed_jobs, golden_pool):
         if frames > B.STACK_BYTES:
             raise SmokeFailure(f"{name}: ptxas stack frames sum to {frames} "
                                f"bytes, over the launch's {B.STACK_BYTES}")
+        if key == keys["superover"]:
+            # the main production build: its calls and SASS, and its gate
+            for ln in fused_build_lines(path, out):
+                log(f"    {ln}")
+            main_build_gate(name, out)
     for r in runners.values():
         B.load_kernel(r.plan)
     log_engine_builds(eng_builds, eng_shared, B)
@@ -2464,27 +2474,94 @@ def golden_main():
     log(f"[total] {time.time() - t_start:.1f}s")
 
 
-def sass_sizes(path):
-    """{kernel entry: instructions} of the SASS in library ``path``
-    (``cuobjdump -sass``; {} without it): the instruction stream each
-    kernel's warps fetch, 16 bytes an instruction."""
+def sass_stats(path):
+    """{kernel entry: (instructions, LDL, STL)} of the SASS in library
+    ``path`` (``cuobjdump -sass``; {} without it): the instruction stream
+    each kernel's warps fetch, 16 bytes an instruction, and its loads and
+    stores of the thread's local memory (its stack frame and spills)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
         out = subprocess.run([tool, "-sass", path], capture_output=True,
                              text=True, timeout=300).stdout
     except (OSError, subprocess.SubprocessError):
         return {}
-    sizes = {}
+    stats = {}
     for part in re.split(r"Function : ", out)[1:]:
         name = part.split(None, 1)[0]
-        sizes[name] = len(re.findall(r"/\*[0-9a-f]{4,}\*/", part))
-    return sizes
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?\w+\s+)?([A-Z0-9_]+)",
+                         part)
+        stats[name] = (len(ops), ops.count("LDL"), ops.count("STL"))
+    return stats
+
+
+def sass_sizes(path):
+    """{kernel entry: instructions} of the SASS in library ``path``."""
+    return {k: v[0] for k, v in sass_stats(path).items()}
 
 
 def sass_size(path):
-    """(instructions, bytes) of all the SASS in library ``path``."""
-    n = sum(sass_sizes(path).values())
-    return n, 16 * n
+    """(instructions, bytes, LDL, STL) of all the SASS in library
+    ``path``."""
+    rows = sass_stats(path).values()
+    n = sum(r[0] for r in rows)
+    return n, 16 * n, sum(r[1] for r in rows), sum(r[2] for r in rows)
+
+
+def ptxas_calls(out):
+    """The functions a build's ptxas -v log lists beside its kernel
+    entries: those the inliner left as calls (demangled where c++filt
+    is there)."""
+    entries = set(re.findall(r"Compiling entry function '(\S+)'", out))
+    names = [n for n in dict.fromkeys(
+        re.findall(r"Function properties for (\S+)", out))
+        if n not in entries]
+    tool = shutil.which("c++filt")
+    if names and tool:
+        try:
+            names = subprocess.run([tool] + names, capture_output=True,
+                                   text=True, timeout=60).stdout.split("\n")
+            names = [n for n in names if n]
+        except (OSError, subprocess.SubprocessError):
+            pass
+    return names
+
+
+def ptxas_lines(out):
+    """ptxas's entry numbers and every function with a frame or spills,
+    from a build's log."""
+    return [ln.strip() for ln in out.splitlines()
+            if "Used" in ln or ("stack frame" in ln and not ln.strip()
+                                .startswith("0 bytes stack frame, 0 bytes"))]
+
+
+def fused_build_lines(path, out):
+    """The lines logged for a fused build beside ptxas's: the functions
+    its log lists as calls, and its SASS (instructions, local-memory loads
+    and stores)."""
+    calls = ptxas_calls(out)
+    n, nbytes, ldl, stl = sass_size(path)
+    return [f"calls: {', '.join(calls) if calls else 'none'}",
+            f"SASS {n} instructions ({nbytes / 1024:.0f} KiB), {ldl} LDL, "
+            f"{stl} STL"]
+
+
+def main_build_gate(name, out):
+    """Fail unless the main path's production build's kernel entry keeps
+    within MAIN_FRAME_BYTES of stack frame and has no spill stores
+    (ptxas's log ``out``)."""
+    rows = ptxas_entries(out)
+    if not rows:
+        raise SmokeFailure(f"{name}: no ptxas report for its kernel entry")
+    for entry, regs, frame, st, ld in rows:
+        if frame > MAIN_FRAME_BYTES or st > 0:
+            raise SmokeFailure(
+                f"{name}: ptxas reports {frame} bytes of stack frame and "
+                f"{st} bytes of spill stores for {entry} (at most "
+                f"{MAIN_FRAME_BYTES} and none)")
+        log(f"[2 build] {name}: the main production build's entry within "
+            f"its gate: {regs} registers, {frame} bytes stack frame (at "
+            f"most {MAIN_FRAME_BYTES}), {st} bytes spill stores, {ld} bytes "
+            f"spill loads")
 
 
 def port_device(root, torch):
@@ -2539,14 +2616,14 @@ def port_paths(root, torch):
                                         builds.values())))
     log(f"[2 build] {len(paths)} builds in {time.time() - t0:.1f}s")
     for name, path in paths.items():
-        secs, out = B.LAST_BUILD.get(path, (0.0, ""))
-        n, nbytes = sass_size(path)
-        log(f"[2 build] {name}: nvcc {secs:.1f}s -> {os.path.basename(path)}"
-            f"; SASS {n} instructions ({nbytes / 1024:.0f} KiB)")
-        for ln in out.splitlines():
-            if "Used" in ln or ("stack frame" in ln and not ln.strip()
-                                .startswith("0 bytes stack frame, 0 bytes")):
-                log(f"    ptxas: {ln.strip()}")
+        # a checkout from before build.build_log: this process's log
+        secs, out = (B.build_log(path) if hasattr(B, "build_log")
+                     else B.LAST_BUILD.get(path, (0.0, "")))
+        log(f"[2 build] {name}: nvcc {secs:.1f}s -> "
+            f"{os.path.basename(path)}")
+        for ln in [f"ptxas: {v}" for v in ptxas_lines(out)] + \
+                fused_build_lines(path, out):
+            log(f"    {ln}")
     return card, runners, seed, lane_values, lv_level
 
 

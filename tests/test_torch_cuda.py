@@ -14,6 +14,8 @@ y within -180 dB of each lane's peak, converged equal; its split over
 (cuda:0, cuda:0) bit for bit as unsplit; its two instantiations (the model
 block shared by every lane, staged in shared memory, and per-lane blocks
 in device memory) bit for bit with each other on a ragged lane count.
+The main path's production build compiles with no stack frame and no
+spills (ptxas's report).
 """
 
 import copy
@@ -326,6 +328,32 @@ def test_production_builds_bit_for_bit_on_card(path):
     if path == "main":
         its = got[3].cpu().numpy()
         assert (its[:, 3] > np.delete(its, 3, axis=1).max(axis=1)).any()
+
+
+# the main path's production build: the most stack frame ptxas may report
+# for its kernel entry (nothing of its working set belongs in local memory,
+# csrc/fused.cu)
+MAIN_FRAME_BYTES = 0
+
+
+@pytest.mark.cuda
+def test_main_build_has_no_frame_on_card():
+    """The main path's production build, compiled for the card: ptxas
+    reports its kernel entry with at most MAIN_FRAME_BYTES of stack frame
+    and no spill stores or loads."""
+    _card()
+    import re
+    from acme_tpu_torch.ops import build as B
+    fr = FusedRunner(S.build_model("pots", "chain"), device="cuda",
+                     lane_input_idx=(1, 2), powerup="steady", **PROD)
+    _, out = B.build_log(B.compile_library(fr.plan))
+    rows = re.findall(r"Function properties for \S*acme_fused_kernel\S*\s+"
+                      r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", out)
+    assert rows, out
+    for frame, stores, loads in rows:
+        assert int(frame) <= MAIN_FRAME_BYTES, out
+        assert int(stores) == 0 and int(loads) == 0, out
 
 
 # -- the float64 scan engine (csrc/scan.cu) -----------------------------------

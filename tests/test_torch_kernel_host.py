@@ -25,7 +25,8 @@ the kernel's per-lane step lane by lane.  Against the plain torch version:
   path's build) and the un-decomposed Super Over's two builds are held
   bit for bit in y, state, fails, floored and iters rather than at
   -90 dB, the main path's also with a lane that takes the redo ladder
-  beside lanes that do not.
+  beside lanes that do not, and as two chained launches against one
+  (with and without such a lane).
 
 Skipped where g++ is absent.  A kernel logic fault shows here before any
 time on the card is spent.
@@ -236,6 +237,45 @@ def test_step_lane_takes_the_redo(host_lib, superover):
     others = np.delete(its.numpy(), 3, axis=1)
     assert (others == others[:, :1]).all()
     assert (its[:, 3].numpy() > others[:, 0]).any()
+
+
+@pytest.mark.parametrize("case", ["steady", "redo"])
+def test_step_main_chained_launches_bitwise(host_lib, superover, case):
+    """The main path's production build run as two chained launches (3
+    samples, then 5 from the state the first left) against one launch of
+    all 8: bit for bit in y (the two launches' in turn), the state, and
+    fails, iters and floored (the two launches' sums), against the host
+    build's one launch and against the plain version's.  "redo": lane 3
+    of the eight starts off its steady point and takes the redo ladder
+    (gated Newton, homotopy, df rescue) while the others do not."""
+    _, out = host_lib
+    fr = _main_runner(superover)
+    lanes = np.arange(1000, 1008)
+    state = _seeds(fr, lanes)
+    if case == "redo":
+        state["zw"][:, 3] *= 0.9
+        state["dzdp"][:, 3] = 0.0
+    u, lv, tol, gate = fr.prepare_inputs(
+        _sine(0.2, 8), S.lane_grid("pots", 4096)[3][lanes])
+    coef = fr._coef_tables(len(lanes))
+    lib = load_host(fr.plan, out)
+    first = F.host_step(lib, fr.plan, u[:3], lv, tol, gate, state, coef)
+    second = F.host_step(lib, fr.plan, u[3:], lv, tol, gate, first[1], coef)
+    chained = (torch.cat([first[0], second[0]]), second[1]) + tuple(
+        a + b for a, b in zip(first[2:], second[2:]))
+    for one in (F.host_step(lib, fr.plan, u, lv, tol, gate, state, coef),
+                F.plain_run(fr.plan, u, lv, tol, gate, state, coef)):
+        for name, c, o in zip(("y", "state", "fails", "iters", "floored"),
+                              chained, one):
+            if name == "state":
+                for k in o:
+                    assert torch.equal(c[k], o[k]), k
+            else:
+                assert torch.equal(c, o), name
+    its = chained[3].numpy()
+    others = np.delete(its, 3, axis=1)
+    assert (others == others[:, :1]).all()
+    assert (its[:, 3] > others[:, 0]).any() == (case == "redo")
 
 
 def test_linear_model_without_subsystems(host_lib):
