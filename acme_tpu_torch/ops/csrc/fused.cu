@@ -27,14 +27,23 @@
 //    and the eliminations' pivot cascades are selects (linsolve.cuh), so
 //    no array is indexed at run time.  A call or a run-time index would
 //    put its arrays (the df 5x5 elimination's matrix, the df physics' q,
-//    res and Jq, the lane's carry) in the thread's local-memory frame;
-//    ptxas reports none and no spills for the main production build
-//    (chip_smoke.py phase 2 holds it there).
+//    res and Jq, the lane's carry) in the thread's local-memory frame.
 //    The launch bounds let a thread take all 255 registers: at the
 //    sweeps' lane counts an SM holds one or a few 32-thread blocks, so
-//    registers do not limit occupancy.  A build with a larger working set
-//    (the un-decomposed Super Over's 7x7 df elimination with six
-//    right-hand columns) still spills (PERF.md).
+//    registers do not limit occupancy.  What a subsystem's solve writes
+//    early and reads again only after long stretches of work (its pfull
+//    pair, the sensitivity columns its polish keeps) sits in the carry
+//    too.  A subsystem of 7 unknowns (the un-decomposed Super Over) fills
+//    the registers with its df system alone: its p and the redo's start
+//    wait in the carry as well, compiler barriers keep what its solve
+//    reads from the carry from being held in registers across the solve
+//    (step.cuh IN_CARRY).  Every elimination of three or more unknowns
+//    factors the matrix once, then takes each right-hand column in turn
+//    (linsolve.cuh), so the 7x7 df system with six columns holds the
+//    matrix, its multipliers and one column.  ptxas reports no frame and
+//    no spills for the main
+//    production build and the full path's two (chip_smoke.py phase 2
+//    holds them there).
 //  * Occupancy at 4096 lanes: 4096 threads in 128-thread blocks would
 //    occupy 32 of the 132 SMs, so blocks are 32 threads (128 blocks).
 //  * Per-lane models (the TPU kernel's _Var tables): the coefficients that

@@ -41,6 +41,7 @@
 #include <chrono>
 #include <condition_variable>
 #include <mutex>
+#include <type_traits>
 
 namespace acme {
 
@@ -74,18 +75,53 @@ struct GroupOf<true> {
 // a block on the card: one warp, a lane a thread (fused.cu)
 constexpr int BLOCK = 32;
 
+// the fewest unknowns of a subsystem whose solve is IN_CARRY
+constexpr int CARRY_FROM = 6;
+
+// Whether a subsystem's solve is one of CARRY_FROM or more unknowns, whose
+// working set leaves no registers on the card for values it reads again
+// only after long stretches of work: its pfull pair, p, redo's start and
+// kept sensitivity columns then wait in the lane's carry, and compiler
+// barriers (carry_fence) keep the values it reads from the carry from
+// being held in registers across the solve.  A smaller subsystem keeps
+// them in registers, where it reads them fastest.
+template <class S>
+constexpr bool IN_CARRY = S::NN >= CARRY_FROM;
+
+// the carry's room for what solves IN_CARRY keep there: the largest q
+// among them (its pf and pflo hold any one's), and dz/dp's, wp's and z's
+// sizes where there is one (none without)
+#define ACME_NQ(S) (IN_CARRY<S> ? S::NQ : 0),
+constexpr int NQS[] = {ACME_FOR_EACH_SUB(ACME_NQ) 0};
+#undef ACME_NQ
+constexpr int nq_max() {
+  int m = 0;
+  for (int v : NQS) m = v > m ? v : m;
+  return m;
+}
+constexpr int NQ_C = nq_max(), NDZ_C = NQ_C > 0 ? NDZ : 0,
+              NPT_C = NQ_C > 0 ? NPT : 0, NNT_C = NQ_C > 0 ? NNT : 0;
+
 // The lane's carry across samples: its state (x, z and their lo parts,
 // the warm start's zw, wp and dz/dp, the polish-stall flags), its
 // tolerances and gates, its per-lane coefficients and input values,
-// floats at these offsets, then its iteration counts, ints.  On the card
-// a block's carry lives in shared memory as [value][BLOCK] (value i of
-// thread t at i * BLOCK + t: a warp's accesses to one value fall in 32
-// banks), loaded once before the time loop and stored once after it, so
-// the registers hold only the working set of the subsystem being solved;
-// on the host a lane's carry is one array of its own.
+// floats at these offsets, then its iteration counts, ints.  Within a
+// sample it also holds what the solve of a subsystem IN_CARRY reads again
+// after long stretches of work: its pfull pair (pf, pflo), its p (at wp's
+// offsets), the fast path's point (zs, the redo's start, at z's offsets)
+// and the sensitivity columns its polish last kept (cols, in dz/dp's
+// layout) until they replace its dz/dp.  On the card a block's carry
+// lives in shared memory as [value][BLOCK] (value i of thread t at
+// i * BLOCK + t: a warp's accesses to one value fall in 32 banks), loaded
+// once before the time loop and stored once after it, so the registers
+// hold only the working set of the subsystem being solved; on the host a
+// lane's carry is one array of its own.
 constexpr int C_X = 0, C_XLO = C_X + NX, C_Z = C_XLO + NX, C_ZLO = C_Z + NNT,
               C_ZW = C_ZLO + NNT, C_WP = C_ZW + NNT, C_DZDP = C_WP + NPT,
-              C_PMODE = C_DZDP + NDZ, C_TOL = C_PMODE + NSUB,
+              C_COLS = C_DZDP + NDZ, C_PF = C_COLS + NDZ_C,
+              C_PFLO = C_PF + NQ_C, C_P = C_PFLO + NQ_C, C_ZS = C_P + NPT_C,
+              C_PMODE = C_ZS + NNT_C,
+              C_TOL = C_PMODE + NSUB,
               C_GATE = C_TOL + NSUB, C_CV = C_GATE + 3 * NSUB,
               C_CVL = C_CV + NVAR, C_LV = C_CVL + NVAR;
 constexpr int NCF = cmax1<C_LV + NU_L>::v, NCI = cmax1<NSUB>::v;
@@ -105,7 +141,8 @@ struct Col {
 // a lane: views of its carry (f the first float of it, n the first int)
 // and its two failure counts
 struct Lane : GroupOf<VERIFY_GROUP> {
-  Col<float> x, xlo, z, zlo, zw, wp, dzdp, pmode, tol, gate, cv, cvl, lv;
+  Col<float> x, xlo, z, zlo, zw, wp, dzdp, pmode, tol, gate, cv, cvl, lv,
+      cols, pf, pflo, p, zs;
   Col<int> iters;
   int fails, floored;
   HD Lane(float* f, int* n)
@@ -115,7 +152,10 @@ struct Lane : GroupOf<VERIFY_GROUP> {
         dzdp{f + C_DZDP * CARRY_STRIDE}, pmode{f + C_PMODE * CARRY_STRIDE},
         tol{f + C_TOL * CARRY_STRIDE}, gate{f + C_GATE * CARRY_STRIDE},
         cv{f + C_CV * CARRY_STRIDE}, cvl{f + C_CVL * CARRY_STRIDE},
-        lv{f + C_LV * CARRY_STRIDE}, iters{n}, fails(0), floored(0) {}
+        lv{f + C_LV * CARRY_STRIDE}, cols{f + C_COLS * CARRY_STRIDE},
+        pf{f + C_PF * CARRY_STRIDE}, pflo{f + C_PFLO * CARRY_STRIDE},
+        p{f + C_P * CARRY_STRIDE}, zs{f + C_ZS * CARRY_STRIDE}, iters{n},
+        fails(0), floored(0) {}
 };
 
 // a lane group on the host, whose lanes run on threads of their own: a
@@ -202,15 +242,35 @@ ACME_FORCEINLINE HD bool group_all(LaneT& ln, bool ok) {
   }
 }
 
-// the sample's view of one subsystem: its p, pfull pair and tolerances
+// the sample's view of one subsystem: its p, pfull pair (views of the
+// carry's in a solve IN_CARRY) and tolerances
 template <class S>
 struct Ctx {
   static constexpr int NN = S::NN, NQ = S::NQ, NP = cmax1<S::NP>::v;
+  using Pf = std::conditional_t<IN_CARRY<S>, Col<float>, float[NQ]>;
   float p[NP];
-  float pf[NQ], pflo[NQ];
+  Pf pf, pflo;
   float ltol, lgate, gate_v, ptol;
   const Lane* ln;
 };
+
+// In a solve IN_CARRY, a compiler barrier: what the solve read from the
+// carry before it, or wrote there, it reads from the carry again after it.
+template <class S>
+ACME_FORCEINLINE HD void carry_fence() {
+#ifdef __CUDA_ARCH__
+  if constexpr (IN_CARRY<S>) asm volatile("" ::: "memory");
+#endif
+}
+
+// the subsystem's p, i
+template <class S>
+ACME_FORCEINLINE HD float p_at(const Ctx<S>& cx, int i) {
+  if constexpr (IN_CARRY<S>)
+    return cx.ln->p[S::POFF + i];
+  else
+    return cx.p[i];
+}
 
 template <class S>
 struct Eval {
@@ -247,8 +307,8 @@ ACME_FORCEINLINE HD void eval_stats(Eval<S>& e) {
 }
 
 // eval_at in plain mode: q = pfull + Fq z (or pf + Fq z for the homotopy)
-template <class S>
-ACME_FORCEINLINE HD void eval_plain(const Ctx<S>& cx, const float* pf,
+template <class S, class P>
+ACME_FORCEINLINE HD void eval_plain(const Ctx<S>& cx, P pf,
                                     const float (&z)[S::NN], Eval<S>& e,
                                     bool stats) {
   const Lane& ln = *cx.ln;
@@ -426,7 +486,8 @@ ACME_FORCEINLINE HD void homotopy_rescue(const Ctx<S>& cx, Solved<S>& st) {
     float pmix[Ctx<S>::NP], pf[S::NQ];
     ACME_UNROLL
     for (int i = 0; i < S::NP; ++i)
-      pmix[i] = ln.wp[S::POFF + i] + a_try * (cx.p[i] - ln.wp[S::POFF + i]);
+      pmix[i] = ln.wp[S::POFF + i] +
+                a_try * (p_at<S>(cx, i) - ln.wp[S::POFF + i]);
     S::pf_mix(ln.cv, ln.cvl, pmix, pf);
     Eval<S> e;
     eval_plain<S>(cx, pf, z_h, e, true);
@@ -540,7 +601,7 @@ ACME_FORCEINLINE HD void polish_solve(const Eval<S>& e, const DfSys<S>& sys,
     for (int a = 0; a < S::NN; ++a) R[1 + b][a] = jp[b * S::NN + a];
   }
   if constexpr (DFSYS) {
-    df Rd[M][S::NN], Xd[M][S::NN];
+    df Rd[M][S::NN];
     ACME_UNROLL
     for (int a = 0; a < S::NN; ++a) Rd[0][a] = sys.res[a];
     ACME_UNROLL
@@ -548,16 +609,16 @@ ACME_FORCEINLINE HD void polish_solve(const Eval<S>& e, const DfSys<S>& sys,
       ACME_UNROLL
       for (int a = 0; a < S::NN; ++a) Rd[b][a] = df(R[b][a]);
     }
-    solve_rows<S::NN, M, df>(sys.J, Rd, Xd, 0, true);
-    ACME_UNROLL
-    for (int j = 0; j < M; ++j) {
-      ACME_UNROLL
-      for (int a = 0; a < S::NN; ++a) X[j][a] = Xd[j][a].hi + Xd[j][a].lo;
-    }
+    // each column collapsed as the elimination finishes it
+    solve_rows<S::NN, M, df>(sys.J, Rd, X, 0, true);
   } else {
     solve_rows<S::NN, M, float>(e.J, R, X, rf, true);
   }
 }
+
+// whether a polish_eval in that mode solves for the sensitivity columns
+template <class S, bool LIGHT>
+constexpr bool HAS_COLS = EXTRAP && S::NP > 0 && !LIGHT;
 
 // one evaluation in MODE + shared elimination X = J \ [res | Jp]
 // (fused.py:1652); LIGHT drops the columns and the refinement, VERD
@@ -579,7 +640,7 @@ ACME_FORCEINLINE HD void polish_eval(const Ctx<S>& cx,
   pe.resmax = e.resmax;
   const int rf = LIGHT ? 0 : (VERD ? VREFINE : REFINE);
   // the sensitivity columns ride along while the origin is maintained
-  if constexpr (EXTRAP && S::NP > 0 && !LIGHT) {
+  if constexpr (HAS_COLS<S, LIGHT>) {
     float jp[NP * S::NN], X[1 + NP][S::NN];
     S::jp(cx.ln->cv, cx.ln->cvl, e.Jq, jp);
     polish_solve<S, 1 + NP, DFSYS>(e, sys, jp, rf, X);
@@ -606,18 +667,69 @@ ACME_FORCEINLINE HD void polish_eval(const Ctx<S>& cx,
   pe.fin = jfinite(e.resmax) && all_finite<S>(pe.dz);
 }
 
+// the polish's state; its sensitivity columns in registers, or in a
+// solve IN_CARRY where `cols` says: zeros (0), a pass's NaN placeholders
+// (1) or the carry's cols (2)
 template <class S>
 struct PolishSt {
   float z[S::NN], zlo[S::NN];
-  float cols[Ctx<S>::NP][S::NN];
+  std::conditional_t<IN_CARRY<S>, int, float[Ctx<S>::NP][S::NN]> cols;
   float rm, rm1, tl1, lg, gf, tp, pfrz, pstall, k;
 };
 
-// one verdict pass (fused.py:1898-1948); returns the pre-step residual
+// the polish state's sensitivity columns set to zeros
 template <class S>
-ACME_FORCEINLINE HD float vd_pass(const Ctx<S>& cx, PolishSt<S>& st) {
-  PolishEval<S> pe;
-  polish_eval<S, S::DF_SLV ? (int)DFM : VERDICT, false, true>(cx, st.z, pe);
+ACME_FORCEINLINE HD void zero_cols(PolishSt<S>& st) {
+  if constexpr (IN_CARRY<S>) {
+    st.cols = 0;
+  } else {
+    ACME_UNROLL
+    for (int b = 0; b < Ctx<S>::NP; ++b) {
+      ACME_UNROLL
+      for (int a = 0; a < S::NN; ++a) st.cols[b][a] = 0.0f;
+    }
+  }
+}
+
+// a pass's sensitivity columns kept in the polish state (in a solve
+// IN_CARRY real ones go to the carry's cols, in dz/dp's layout)
+template <class S, bool LIGHT>
+ACME_FORCEINLINE HD void keep_cols(const Ctx<S>& cx, const PolishEval<S>& pe,
+                                   PolishSt<S>& st) {
+  if constexpr (!IN_CARRY<S>) {
+    ACME_UNROLL
+    for (int b = 0; b < Ctx<S>::NP; ++b) {
+      ACME_UNROLL
+      for (int a = 0; a < S::NN; ++a) st.cols[b][a] = pe.cols[b][a];
+    }
+  } else if constexpr (HAS_COLS<S, LIGHT>) {
+    ACME_UNROLL
+    for (int b = 0; b < S::NP; ++b) {
+      ACME_UNROLL
+      for (int a = 0; a < S::NN; ++a)
+        cx.ln->cols[S::DOFF + a * S::NP + b] = pe.cols[b][a];
+    }
+    st.cols = 2;
+  } else {
+    st.cols = 1;
+  }
+}
+
+// the polish state's sensitivity column b, element a
+template <class S>
+ACME_FORCEINLINE HD float col_at(const Ctx<S>& cx, const PolishSt<S>& st,
+                                 int b, int a) {
+  if constexpr (IN_CARRY<S>)
+    return st.cols == 2 ? cx.ln->cols[S::DOFF + a * S::NP + b]
+                        : (st.cols == 1 ? NAN : 0.0f);
+  else
+    return st.cols[b][a];
+}
+
+// a verdict pass's results (fused.py:1898-1948), for a pass that is kept
+template <class S>
+ACME_FORCEINLINE HD void vd_keep(const Ctx<S>& cx, const PolishEval<S>& pe,
+                                 PolishSt<S>& st) {
   if (pe.fin) st.tp = pe.tol_pol;
   bool vstep = S::DF_SLV ? pe.fin : (pe.fin && pe.resmax >= pe.tol_pol);
   ACME_UNROLL
@@ -632,14 +744,8 @@ ACME_FORCEINLINE HD float vd_pass(const Ctx<S>& cx, PolishSt<S>& st) {
     st.rm = pe.resmax;
     st.lg = pe.lgate_eff;
     st.gf = pe.gate_eff_f;
-    ACME_UNROLL
-    for (int b = 0; b < Ctx<S>::NP; ++b) {
-      ACME_UNROLL
-      for (int a = 0; a < S::NN; ++a) st.cols[b][a] = pe.cols[b][a];
-    }
+    keep_cols<S, false>(cx, pe, st);
   }
-  st.k = st.k + 1.0f;
-  return pe.resmax;
 }
 
 // the polish loop (plain, compensated or df) with its unrolled prefix,
@@ -649,11 +755,7 @@ ACME_FORCEINLINE HD void polish_all(const Ctx<S>& cx,
                                     const float (&zs)[S::NN], PolishSt<S>& st) {
   ACME_UNROLL
   for (int a = 0; a < S::NN; ++a) st.z[a] = zs[a], st.zlo[a] = 0.0f;
-  ACME_UNROLL
-  for (int b = 0; b < Ctx<S>::NP; ++b) {
-    ACME_UNROLL
-    for (int a = 0; a < S::NN; ++a) st.cols[b][a] = 0.0f;
-  }
+  zero_cols<S>(st);
   st.rm = 3e38f;
   st.rm1 = 3e38f;
   st.tl1 = cx.ltol;
@@ -695,11 +797,7 @@ ACME_FORCEINLINE HD void polish_all(const Ctx<S>& cx,
     st.lg = pe.lgate_eff;
     st.gf = pe.gate_eff_f;
     st.tp = pe.tol_pol;
-    ACME_UNROLL
-    for (int b = 0; b < Ctx<S>::NP; ++b) {
-      ACME_UNROLL
-      for (int a = 0; a < S::NN; ++a) st.cols[b][a] = pe.cols[b][a];
-    }
+    keep_cols<S, VERDICT != NONE>(cx, pe, st);
     st.k = st.k + 1.0f;
   }
   if constexpr (VERDICT != NONE) {
@@ -710,15 +808,13 @@ ACME_FORCEINLINE HD void polish_all(const Ctx<S>& cx,
     ACME_ROLLED
     for (int i = 0; i <= (S::FOLD ? 9 : 0); ++i) {
       if (i > 0 && !((rm_prev >= VTGT) && jfinite(rm_prev))) break;
-      PolishSt<S> st2 = st;
-      float rm_df = vd_pass<S>(cx, st2);
-      bool act = i == 0 || rm_df <= 0.9f * rm_prev;
-      rm_prev = act ? rm_df : 0.0f;
-      if (act) {
-        st = st2;
-      } else {
-        st.k = st2.k;
-      }
+      PolishEval<S> pe;
+      polish_eval<S, S::DF_SLV ? (int)DFM : VERDICT, false, true>(cx, st.z,
+                                                                  pe);
+      bool act = i == 0 || pe.resmax <= 0.9f * rm_prev;
+      rm_prev = act ? pe.resmax : 0.0f;
+      if (act) vd_keep<S>(cx, pe, st);
+      st.k = st.k + 1.0f;
     }
   }
 }
@@ -742,6 +838,12 @@ ACME_FORCEINLINE HD void solve_sub(Lane& ln, const float* u, bool& any_fail,
     S::p_of(ln.cv, ln.cvl, ln.x, ln.xlo, u, ln.z, ln.zlo, cx.p);
   else
     S::p_plain(ln.cv, ln.cvl, ln.x, u, ln.z, cx.p);
+  if constexpr (IN_CARRY<S>) {
+    ACME_UNROLL
+    for (int i = 0; i < S::NP; ++i) ln.p[S::POFF + i] = cx.p[i];
+    cx.pf = ln.pf;
+    cx.pflo = ln.pflo;
+  }
   if constexpr (COMP) {
     S::pfull(ln.cv, ln.cvl, cx.p, cx.pf, cx.pflo);
   } else {
@@ -768,6 +870,7 @@ ACME_FORCEINLINE HD void solve_sub(Lane& ln, const float* u, bool& any_fail,
       z0[i1] = ln.zw[S::OFF + i1];
     }
   }
+  carry_fence<S>();
   PolishSt<S> st;
   float itv;
   if constexpr (!FAST_PATH) {
@@ -807,12 +910,16 @@ ACME_FORCEINLINE HD void solve_sub(Lane& ln, const float* u, bool& any_fail,
     float zp[NN], sv_itv = 0.0f;
     ACME_UNROLL
     for (int a = 0; a < NN; ++a) zp[a] = zs[a];
+    if constexpr (IN_CARRY<S>) {
+      // the redo's start waits in the carry
+      ACME_UNROLL
+      for (int a = 0; a < NN; ++a) ln.zs[S::OFF + a] = zs[a];
+      carry_fence<S>();
+    }
     ACME_ROLLED
     for (int pass = 0; pass < 2; ++pass) {
-      PolishSt<S> sp;
-      polish_all<S>(cx, zp, sp);
+      polish_all<S>(cx, zp, st);
       if (pass == 0) {
-        st = sp;
         itv = (float)FAST_ITERS + st.k;
         const float keep_thr = KEEP_TOL ? st.tp : st.gf;
         bool ok1 =
@@ -820,25 +927,20 @@ ACME_FORCEINLINE HD void solve_sub(Lane& ln, const float* u, bool& any_fail,
         if (!(VERIFY_ALWAYS || (VERIFY_GROUP ? !group_all(ln, ok1) : !ok1)))
           break;
         Solved<S> sv;
+        if constexpr (IN_CARRY<S>) {
+          ACME_UNROLL
+          for (int a = 0; a < NN; ++a) zs[a] = ln.zs[S::OFF + a];
+        }
         full_solve<S>(cx, zs, sv);
         ACME_UNROLL
         for (int a = 0; a < NN; ++a) zp[a] = sv.z[a];
         sv_itv = sv.itv;
       } else {
-        ACME_UNROLL
-        for (int a = 0; a < NN; ++a) st.z[a] = sp.z[a], st.zlo[a] = sp.zlo[a];
-        ACME_UNROLL
-        for (int b = 0; b < NP; ++b) {
-          ACME_UNROLL
-          for (int a = 0; a < NN; ++a) st.cols[b][a] = sp.cols[b][a];
-        }
-        st.rm = sp.rm;
-        st.gf = sp.gf;
-        st.pstall = sp.pstall;
-        itv = itv + (sv_itv + sp.k);
+        itv = itv + (sv_itv + st.k);
       }
     }
   }
+  carry_fence<S>();
   // acceptance, floor certificate, plausibility substitution
   bool z_implaus = false;
   ACME_UNROLL
@@ -864,20 +966,21 @@ ACME_FORCEINLINE HD void solve_sub(Lane& ln, const float* u, bool& any_fail,
     ACME_UNROLL
     for (int b = 0; b < S::NP; ++b) {
       ACME_UNROLL
-      for (int a = 0; a < NN; ++a) okd = okd && (fabsf(st.cols[b][a]) < 1e6f);
+      for (int a = 0; a < NN; ++a)
+        okd = okd && (fabsf(col_at<S>(cx, st, b, a)) < 1e6f);
     }
     if (ok) {
       ACME_UNROLL
       for (int a = 0; a < NN; ++a) ln.zw[S::OFF + a] = st.z[a];
       ACME_UNROLL
-      for (int i = 0; i < S::NP; ++i) ln.wp[S::POFF + i] = cx.p[i];
+      for (int i = 0; i < S::NP; ++i) ln.wp[S::POFF + i] = p_at<S>(cx, i);
     }
     if (okd) {
       ACME_UNROLL
       for (int a = 0; a < NN; ++a) {
         ACME_UNROLL
         for (int i = 0; i < S::NP; ++i)
-          ln.dzdp[S::DOFF + a * S::NP + i] = -st.cols[i][a];
+          ln.dzdp[S::DOFF + a * S::NP + i] = -col_at<S>(cx, st, i, a);
       }
     }
   } else if (ok) {
@@ -885,8 +988,9 @@ ACME_FORCEINLINE HD void solve_sub(Lane& ln, const float* u, bool& any_fail,
     ACME_UNROLL
     for (int a = 0; a < NN; ++a) ln.zw[S::OFF + a] = st.z[a];
     ACME_UNROLL
-    for (int i = 0; i < S::NP; ++i) ln.wp[S::POFF + i] = cx.p[i];
+    for (int i = 0; i < S::NP; ++i) ln.wp[S::POFF + i] = p_at<S>(cx, i);
   }
+  carry_fence<S>();
 }
 
 // one sample: subsystems in chain order (each writes its part of the

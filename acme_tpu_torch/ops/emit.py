@@ -407,6 +407,9 @@ CV = "const C& cv, const C& cvl"
 # so no array of the caller has its address taken by a call
 FN = "template <class C> ACME_FORCEINLINE HD static"
 GFN = "template <class C> ACME_FORCEINLINE HD"
+# those that also take a subsystem's pfull pair: a view of the lane's
+# carry (the sample's) or a pointer to an array (the homotopy's), P
+FNP = "template <class C, class P> ACME_FORCEINLINE HD static"
 
 
 def _czero(cf):
@@ -517,8 +520,8 @@ def _sub_struct(plan, k, s):
         o.append(f"    p[{i}] = {expr};")
     o.append("  }")
     # pfull = q0 + Pexp p as an EFT pair (fused.py:1113-1133)
-    o.append(f"  {FN} void pfull({CV}, const float* p, "
-             "float* pf, float* pflo) {")
+    o.append(f"  {FNP} void pfull({CV}, const float* p, "
+             "P pf, P pflo) {")
     ps = [f"p[{i}]" for i in range(np_)]
     for ci in range(nq):
         hi0, lo0 = _hi_lo(s["q0_sp"][ci])
@@ -530,8 +533,8 @@ def _sub_struct(plan, k, s):
     # pf = q0 + Pexp p, plain float32: the homotopy's at its mixed p
     # (fused.py:1520-1528) and, with compensated=False, the sample's
     # (fused.py:1134-1140)
-    o.append(f"  {FN} void pf_mix({CV}, const float* pm, "
-             "float* pf) {")
+    o.append(f"  {FNP} void pf_mix({CV}, const float* pm, "
+             "P pf) {")
     pms = [f"pm[{i}]" for i in range(np_)]
     for ci in range(nq):
         acc = _dotv_expr(s["pexp"][ci], pms)
@@ -541,16 +544,16 @@ def _sub_struct(plan, k, s):
     o.append("  }")
     # q = pf + Fq z, plain (fused.py:1213-1219)
     zz = [f"z[{i}]" for i in range(nn)]
-    o.append(f"  {FN} void q_plain({CV}, const float* z, "
-             "const float* pf, float* q) {")
+    o.append(f"  {FNP} void q_plain({CV}, const float* z, "
+             "P pf, float* q) {")
     for ci in range(nq):
         acc = _dotv_expr(s["fq"][ci], zz)
         o.append(f"    q[{ci}] = " + (f"pf[{ci}]" if acc is None
                                        else f"({acc}) + pf[{ci}]") + ";")
     o.append("  }")
     # q as an EFT pair (fused.py:1194-1212)
-    o.append(f"  {FN} void q_comp({CV}, const float* z, "
-             "const float* pf, const float* pflo, float* q, float* qlo) {")
+    o.append(f"  {FNP} void q_comp({CV}, const float* z, "
+             "P pf, P pflo, float* q, float* qlo) {")
     for ci in range(nq):
         o.append(f"    {{ float hi = pf[{ci}], lo = pflo[{ci}];")
         for ln in _eft_terms(s["fq_sp"][ci], zz, None):

@@ -47,10 +47,11 @@ Phases, each printed with its seconds:
      subsystem), birdie, the two un-decomposed Super Overs (the clipper's
      and the main path's builds serve their traces too), with ptxas's
      registers, stack frame and spills and the SASS size of each kernel
-     entry; for the main path's production build also the functions the
-     inliner left as calls and its SASS loads and stores of local memory
-     (LDL, STL), and a failure if its kernel entry has more stack frame
-     than MAIN_FRAME_BYTES or any spill store; meanwhile, in worker
+     entry; for the main path's production build and the full path's
+     two (FRAMELESS_BUILDS) also the functions the inliner left as calls
+     and their SASS loads and stores of local memory (LDL, STL), and a
+     failure if a kernel entry of theirs has more stack frame than
+     FRAME_BYTES or any spill store; meanwhile, in worker
      processes on the host, the presets path's float64 references;
   4. kernel against its plain torch version on the card: the diode
      clipper (128 lanes x 256 samples), birdie with its volume pot as a
@@ -205,20 +206,24 @@ Four runs alone, with no result line:
   engine. ``--engine``: phases 1-3 for the engine alone (the main and
      level Super Overs, the engine builds and the seeds' workers), phase
      4's engine rows and phase 5i without the fused comparison;
-  ab. ``--ab [--engine-only] ROOT [ROOT ...]``: for each checkout of the
-     repo in the order given (a checkout named twice runs twice: parent,
-     change, change, parent), a process of its own (``--windows ROOT``)
-     that builds that checkout's main, level and full paths' builds and
-     runs the main path's first two windows from the seeds and the level
-     and full paths' first window from cold, then its engine builds: the
-     main build over one window of ``run_sweep`` from the 18 parity
-     lanes' steady seeds tiled to 4096 lanes (the seeds computed once per
-     ``--ab`` run, before the first visit) and the level window through
-     ``run`` from cold, each in float64 and float32, printing kernel ms
-     per window (``--engine-only``: the engine's windows alone); every
-     visit's outputs bit for bit as the first's (a digest of y, state,
-     fails, iters and floored; the engine's of y, state, converged and
-     iters), each checkout's kernel ms against the first's.
+  ab. ``--ab [--engine-only | --fused-only] [--full-scaling] ROOT
+     [ROOT ...]``: for each checkout of the repo in the order given (a
+     checkout named twice runs twice: parent, change, change, parent), a
+     process of its own (``--windows ROOT``) that builds that checkout's
+     main, level and full paths' builds (logging each build's ptxas
+     numbers, calls, SASS size, and where it loads or stores local
+     memory) and runs the main path's first two windows from the seeds
+     and the level and full paths' first window from cold
+     (``--full-scaling``: then phase 4s's full path), then its engine
+     builds: the main build over one window of ``run_sweep`` from the 18
+     parity lanes' steady seeds tiled to 4096 lanes (the seeds computed
+     once per ``--ab`` run, before the first visit) and the level window
+     through ``run`` from cold, each in float64 and float32, printing
+     kernel ms per window (``--engine-only``: the engine's windows alone;
+     ``--fused-only``: the fused paths alone); every visit's outputs bit
+     for bit as the first's (a digest of y, state, fails, iters and
+     floored; the engine's of y, state, converged and iters), each
+     checkout's kernel ms against the first's.
 """
 
 from __future__ import annotations
@@ -302,10 +307,13 @@ SCALING_SAMPLES = 4096
 AB_MAIN_WINDOWS = 2
 # nvcc processes at a time
 BUILD_WORKERS = 12
-# the main path's production build: its kernel entry's ptxas stack frame
-# may not exceed this many bytes, and it may not spill (nothing of its
-# working set belongs in local memory, csrc/fused.cu)
-MAIN_FRAME_BYTES = 0
+# the builds held without a local-memory frame (phase 2's keys): the main
+# path's production build and the full path's two (the un-decomposed Super
+# Over's 7x7 df elimination); each kernel entry's ptxas stack frame may not
+# exceed FRAME_BYTES, and none may spill (nothing of the working set
+# belongs in local memory, csrc/fused.cu)
+FRAMELESS_BUILDS = ("superover", "full", "full powerup")
+FRAME_BYTES = 0
 # the float64 scan engine: the references' tolerance and the seeds'
 # (bench.py:127-146); its kernel held to its plain version at this dB of
 # each lane's peak; its path's parity gates against the committed float64
@@ -546,9 +554,10 @@ def lane_scaling(label, fr, u, lane_values, state, card, torch, F, op_counts,
     SCALING_LANES (the 4096 lanes' values and state tiled) over
     ``samples`` samples, each timed with CUDA events: kernel ms, lane-samples
     per second, evaluations per lane-sample, and the first 4096 lanes bit
-    for bit as the 4096-lane launch (the lanes are independent)."""
+    for bit as the 4096-lane launch (the lanes are independent).  Returns
+    {lanes: (kernel ms, digest of y, state, fails, iters and floored)}."""
     L0 = lane_values.shape[0]
-    rates, first = {}, None
+    rates, first, out = {}, None, {}
     # the first launch of a library also loads its module
     F.fused_step(fr.plan, *fr.prepare_inputs(u[:, :16], lane_values),
                  state, fr._coef_tables(L0), fr._group(L0))
@@ -592,7 +601,22 @@ def lane_scaling(label, fr, u, lane_values, state, card, torch, F, op_counts,
             f"{rate / 1e6:.3f} M lane-samples/s ({rate / rates[L0]:.2f} x "
             f"the {L0}-lane rate), evals/lane-sample {evals.sum():.3f}, "
             f"bound {b_ms:.3f} ms ({b_by}) | card: {card}")
+        out[L] = ms, tensors_digest(
+            [y] + [st_out[k] for k in sorted(st_out)] + [fails, iters,
+                                                          floored])
         del y, st_out
+    return out
+
+
+def full_scaling(label, fr, u, lv_level, card, torch, F, op_counts):
+    """Phase 4s for the full path's build: its power-up window from cold,
+    then ``lane_scaling`` from the state that window left, over half as
+    many samples as the main path's."""
+    *_, rows = drive_path(f"{label}'s power-up window", fr,
+                          u[:, :2 * POWERUP_SAMPLES], lv_level, None, 1, [0],
+                          card, torch, F, op_counts, hold=1)
+    return lane_scaling(label, fr, u, lv_level, rows[0][4][1], card, torch, F,
+                        op_counts, samples=SCALING_SAMPLES // 2)
 
 
 def steady_windows_clean(label, counts):
@@ -2030,11 +2054,11 @@ def run_all(t_start, torch, seed_jobs, golden_pool):
         if frames > B.STACK_BYTES:
             raise SmokeFailure(f"{name}: ptxas stack frames sum to {frames} "
                                f"bytes, over the launch's {B.STACK_BYTES}")
-        if key == keys["superover"]:
-            # the main production build: its calls and SASS, and its gate
+        if key in {keys[n] for n in FRAMELESS_BUILDS}:
+            # a frameless build: its calls and SASS, and its gate
             for ln in fused_build_lines(path, out):
                 log(f"    {ln}")
-            main_build_gate(name, out)
+            frame_gate(name, out)
     for r in runners.values():
         B.load_kernel(r.plan)
     log_engine_builds(eng_builds, eng_shared, B)
@@ -2534,34 +2558,89 @@ def ptxas_lines(out):
                                 .startswith("0 bytes stack frame, 0 bytes"))]
 
 
-def fused_build_lines(path, out):
+def spill_sites(plan, B):
+    """The SASS loads and stores of local memory (LDL, STL) of ``plan``'s
+    build by source line: the build compiled once more with ``-lineinfo``
+    into a cubin (kept beside its library), read with ``nvdisasm -gi``;
+    lines counted by the innermost source line and by the chain of
+    step.cuh and linsolve.cuh lines inlined into it, the 20 largest of
+    each."""
+    from acme_tpu_torch.ops.emit import write_header
+    lib = B.compile_library(plan)
+    cubin = lib + ".lineinfo.cubin"
+    if not os.path.exists(cubin):
+        flags = [f for f in B.NVCC_FLAGS
+                 if f not in ("-shared", "-Xcompiler", "-fPIC")]
+        tmp = f"{cubin}.{os.getpid()}.tmp"
+        subprocess.run([B._nvcc()] + flags + [
+            "-lineinfo", "-cubin", "-I", B.CSRC, "-include",
+            write_header(plan, os.path.dirname(lib)), "-o", tmp,
+            os.path.join(B.CSRC, B.SOURCES[-1])], capture_output=True,
+            check=True)
+        os.replace(tmp, cubin)
+    tool = shutil.which("nvdisasm") or "/usr/local/cuda/bin/nvdisasm"
+    sass = subprocess.run([tool, "-gi", "-c", cubin], capture_output=True,
+                          text=True, check=True).stdout
+    chain, after_op = [], True
+    inner, chains = {}, {}
+    for ln in sass.splitlines():
+        m = re.search(r'//## File "([^"]+)", line (\d+)', ln)
+        if m:
+            # an instruction's inlining chain, innermost line first
+            chain = [] if after_op else chain
+            chain.append(f"{os.path.basename(m.group(1))}:{m.group(2)}")
+            after_op = False
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?\w+\s+)?([A-Z0-9_]+)", ln)
+        if not m:
+            continue
+        after_op = True
+        if m.group(1) in ("LDL", "STL"):
+            k = m.group(1), chain[0] if chain else "?"
+            inner[k] = inner.get(k, 0) + 1
+            k = m.group(1), " < ".join(
+                [c for c in chain if c.startswith(("step", "linsolve"))][:4])
+            chains[k] = chains.get(k, 0) + 1
+    lines = []
+    for title, c in (("innermost line", inner),
+                     ("step.cuh / linsolve.cuh chain", chains)):
+        lines.append(f"local memory by {title}:")
+        lines += [f"  {op} {k:5d}  {where}" for (op, where), k in
+                  sorted(c.items(), key=lambda kv: -kv[1])[:20]]
+    return lines
+
+
+def fused_build_lines(path, out, plan=None, B=None):
     """The lines logged for a fused build beside ptxas's: the functions
     its log lists as calls, and its SASS (instructions, local-memory loads
-    and stores)."""
+    and stores); with its ``plan``, where it loads or stores local memory
+    (``spill_sites``)."""
     calls = ptxas_calls(out)
     n, nbytes, ldl, stl = sass_size(path)
-    return [f"calls: {', '.join(calls) if calls else 'none'}",
-            f"SASS {n} instructions ({nbytes / 1024:.0f} KiB), {ldl} LDL, "
-            f"{stl} STL"]
+    lines = [f"calls: {', '.join(calls) if calls else 'none'}",
+             f"SASS {n} instructions ({nbytes / 1024:.0f} KiB), {ldl} LDL, "
+             f"{stl} STL"]
+    if plan is not None and ldl + stl:
+        lines += spill_sites(plan, B)
+    return lines
 
 
-def main_build_gate(name, out):
-    """Fail unless the main path's production build's kernel entry keeps
-    within MAIN_FRAME_BYTES of stack frame and has no spill stores
+def frame_gate(name, out):
+    """Fail unless a frameless build's (FRAMELESS_BUILDS) kernel entry
+    keeps within FRAME_BYTES of stack frame and has no spill stores
     (ptxas's log ``out``)."""
     rows = ptxas_entries(out)
     if not rows:
         raise SmokeFailure(f"{name}: no ptxas report for its kernel entry")
     for entry, regs, frame, st, ld in rows:
-        if frame > MAIN_FRAME_BYTES or st > 0:
+        if frame > FRAME_BYTES or st > 0:
             raise SmokeFailure(
                 f"{name}: ptxas reports {frame} bytes of stack frame and "
                 f"{st} bytes of spill stores for {entry} (at most "
-                f"{MAIN_FRAME_BYTES} and none)")
-        log(f"[2 build] {name}: the main production build's entry within "
-            f"its gate: {regs} registers, {frame} bytes stack frame (at "
-            f"most {MAIN_FRAME_BYTES}), {st} bytes spill stores, {ld} bytes "
-            f"spill loads")
+                f"{FRAME_BYTES} and none)")
+        log(f"[2 build] {name}: the entry within its gate: {regs} "
+            f"registers, {frame} bytes stack frame (at most {FRAME_BYTES}), "
+            f"{st} bytes spill stores, {ld} bytes spill loads")
 
 
 def port_device(root, torch):
@@ -2614,15 +2693,19 @@ def port_paths(root, torch):
     with ThreadPoolExecutor(BUILD_WORKERS) as ex:
         paths = dict(zip(builds, ex.map(lambda r: B.compile_library(r.plan),
                                         builds.values())))
-    log(f"[2 build] {len(paths)} builds in {time.time() - t0:.1f}s")
-    for name, path in paths.items():
+        log(f"[2 build] {len(paths)} builds in {time.time() - t0:.1f}s")
         # a checkout from before build.build_log: this process's log
-        secs, out = (B.build_log(path) if hasattr(B, "build_log")
-                     else B.LAST_BUILD.get(path, (0.0, "")))
+        logs = {name: B.build_log(path) if hasattr(B, "build_log")
+                else B.LAST_BUILD.get(path, (0.0, ""))
+                for name, path in paths.items()}
+        extra = dict(zip(paths, ex.map(
+            lambda n: fused_build_lines(paths[n], logs[n][1],
+                                        builds[n].plan, B), paths)))
+    for name, path in paths.items():
+        secs, out = logs[name]
         log(f"[2 build] {name}: nvcc {secs:.1f}s -> "
             f"{os.path.basename(path)}")
-        for ln in [f"ptxas: {v}" for v in ptxas_lines(out)] + \
-                fused_build_lines(path, out):
+        for ln in [f"ptxas: {v}" for v in ptxas_lines(out)] + extra[name]:
             log(f"    {ln}")
     return card, runners, seed, lane_values, lv_level
 
@@ -2732,14 +2815,8 @@ def scaling_main():
         t0 = time.time()
         lane_scaling("4s lane scaling, main path", runners["main"], u,
                      lane_values, seed, card, torch, F, op_counts)
-        *_, rows = drive_path("4s full path's power-up window",
-                              runners["full"], u[:, :2 * POWERUP_SAMPLES],
-                              lv_level, None, 1, [0], card, torch, F,
-                              op_counts, hold=1)
-        lane_scaling("4s lane scaling, full path", runners["full"], u,
-                     lv_level, rows[0][4][1], card, torch, F, op_counts,
-                     samples=SCALING_SAMPLES // 2)
-        del rows
+        full_scaling("4s lane scaling, full path", runners["full"], u,
+                     lv_level, card, torch, F, op_counts)
         (m_so,) = S.build_models([S.model_spec("pots", "chain", FS)])
         eng = {"main": compile_model(m_so, tol=ENGINE_TOL,
                                      device=torch.device("cuda", 0))}
@@ -2755,14 +2832,19 @@ def scaling_main():
         pool.join()
 
 
+def tensors_digest(tensors):
+    """sha256 of the tensors' bits."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def digest(window):
     """sha256 of one window's (y, state, fails, iters, floored) bits."""
     (y, state), info = window[4], window[1]
-    h = hashlib.sha256()
-    for t in [y] + [state[k] for k in sorted(state)] + [
-            info.fails, info.iters, info.floored]:
-        h.update(t.contiguous().cpu().numpy().tobytes())
-    return h.hexdigest()
+    return tensors_digest([y] + [state[k] for k in sorted(state)] + [
+        info.fails, info.iters, info.floored])
 
 
 def engine_windows(lv18, seeds, card, torch):
@@ -2839,13 +2921,15 @@ def engine_windows(lv18, seeds, card, torch):
 
 
 def windows_main(args):
-    """``--windows ROOT [--engine-only] [--seeds FILE]``: the checkout at
-    ROOT's main path (its first AB_MAIN_WINDOWS windows from the seeds),
-    then the level and full paths' first window from cold (not with
-    ``--engine-only``), then the engine's paths (``engine_windows``) from
-    the 18 parity lanes' seeds in FILE (``save_seeds``; computed here
-    without it); the last line one JSON object: each path's window ms,
-    kernel ms and digests."""
+    """``--windows ROOT [--engine-only | --fused-only] [--full-scaling]
+    [--seeds FILE]``: the checkout at ROOT's main path (its first
+    AB_MAIN_WINDOWS windows from the seeds), then the level and full
+    paths' first window from cold (not with ``--engine-only``), with
+    ``--full-scaling`` then the full path's lane scaling (phase 4s), then
+    the engine's paths (``engine_windows``, not with ``--fused-only``)
+    from the 18 parity lanes' seeds in FILE (``save_seeds``; computed
+    here without it); the last line one JSON object: each path's window
+    ms, kernel ms and digests."""
     import torch
     root = args[0]
     seeds_file = args[args.index("--seeds") + 1] if "--seeds" in args \
@@ -2869,35 +2953,47 @@ def windows_main(args):
                          "kernel_ms": [sum(r[2]) for r in rows],
                          "digest": [digest(r) for r in rows]}
             del rows
+        if "--full-scaling" in args:
+            for L, (ms, dg) in full_scaling(
+                    "ab lane scaling, full path", runners["full"], u,
+                    lv_level, card, torch, F, op_counts).items():
+                out[f"full {L} lanes"] = {"ms": [ms], "kernel_ms": [ms],
+                                          "digest": [dg]}
         del runners
-    lv18, seeds = load_seeds(seeds_file) if seeds_file else parity_seeds()
-    out.update(engine_windows(lv18, seeds, card, torch))
+    if "--fused-only" not in args:
+        lv18, seeds = load_seeds(seeds_file) if seeds_file \
+            else parity_seeds()
+        out.update(engine_windows(lv18, seeds, card, torch))
     print(json.dumps({"root": root, "card": card, "paths": out}))
 
 
 def ab_main(args):
-    """``--ab [--engine-only] ROOT [ROOT ...]``: ``--windows`` for each
-    checkout in the order given, each in a process of its own, every visit
-    from the 18 parity lanes' seeds computed once here; fails unless every
+    """``--ab [--engine-only | --fused-only] [--full-scaling] ROOT
+    [ROOT ...]``: ``--windows`` for each checkout in the order given, each
+    in a process of its own, every visit from the 18 parity lanes' seeds
+    computed once here (not with ``--fused-only``); fails unless every
     visit's windows are bit for bit the first visit's.  Prints each visit's
     kernel ms and each checkout's mean against the first checkout's."""
     import tempfile
-    only = [a for a in args if a == "--engine-only"]
-    roots = [a for a in args if a != "--engine-only"]
+    flags = ("--engine-only", "--fused-only", "--full-scaling")
+    only = [a for a in args if a in flags]
+    roots = [a for a in args if a not in flags]
     sys.path.insert(0, HERE)
-    t0 = time.time()
-    lv18, seeds = parity_seeds()
-    log(f"[ab] the 18 parity lanes' seeds: {time.time() - t0:.1f}s")
     visits = []
     with tempfile.TemporaryDirectory() as tmp:
-        seeds_file = os.path.join(tmp, "seeds.npz")
-        save_seeds(seeds_file, lv18, seeds)
+        seeds_file = []
+        if "--fused-only" not in only:
+            t0 = time.time()
+            lv18, seeds = parity_seeds()
+            log(f"[ab] the 18 parity lanes' seeds: {time.time() - t0:.1f}s")
+            seeds_file = ["--seeds", os.path.join(tmp, "seeds.npz")]
+            save_seeds(seeds_file[1], lv18, seeds)
         for root in roots:
             t0 = time.time()
             run = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--windows", root,
-                 "--seeds", seeds_file] + only, capture_output=True,
-                text=True, timeout=1800)
+                [sys.executable, os.path.abspath(__file__), "--windows", root]
+                + seeds_file + only, capture_output=True, text=True,
+                timeout=1800)
             lines = run.stdout.strip().splitlines()
             for ln in lines[:-1]:
                 log(f"  {ln}")

@@ -330,29 +330,37 @@ def test_production_builds_bit_for_bit_on_card(path):
         assert (its[:, 3] > np.delete(its, 3, axis=1).max(axis=1)).any()
 
 
-# the main path's production build: the most stack frame ptxas may report
-# for its kernel entry (nothing of its working set belongs in local memory,
-# csrc/fused.cu)
-MAIN_FRAME_BYTES = 0
+# the main path's production build and the full path's two: the most
+# stack frame ptxas may report for their kernel entry (nothing of the
+# working set belongs in local memory, csrc/fused.cu)
+FRAME_BYTES = 0
 
 
 @pytest.mark.cuda
-def test_main_build_has_no_frame_on_card():
-    """The main path's production build, compiled for the card: ptxas
-    reports its kernel entry with at most MAIN_FRAME_BYTES of stack frame
-    and no spill stores or loads."""
+@pytest.mark.parametrize("build", ["main", "full", "full_powerup"])
+def test_main_build_has_no_frame_on_card(build):
+    """The main path's production build and the full path's (the
+    un-decomposed Super Over's production build and its power-up sibling),
+    compiled for the card: ptxas reports each kernel entry with at most
+    FRAME_BYTES of stack frame and no spill stores or loads."""
     _card()
     import re
     from acme_tpu_torch.ops import build as B
-    fr = FusedRunner(S.build_model("pots", "chain"), device="cuda",
-                     lane_input_idx=(1, 2), powerup="steady", **PROD)
+    if build == "main":
+        fr = FusedRunner(S.build_model("pots", "chain"), device="cuda",
+                         lane_input_idx=(1, 2), powerup="steady", **PROD)
+    else:
+        fr = FusedRunner(S.build_model("level", "full"), device="cuda",
+                         lane_scale_idx=(0,), powerup="safe", **PROD)
+        if build == "full_powerup":
+            fr = fr._powerup_runner()
     _, out = B.build_log(B.compile_library(fr.plan))
     rows = re.findall(r"Function properties for \S*acme_fused_kernel\S*\s+"
                       r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", out)
     assert rows, out
     for frame, stores, loads in rows:
-        assert int(frame) <= MAIN_FRAME_BYTES, out
+        assert int(frame) <= FRAME_BYTES, out
         assert int(stores) == 0 and int(loads) == 0, out
 
 

@@ -26,7 +26,7 @@ the kernel's per-lane step lane by lane.  Against the plain torch version:
   bit for bit in y, state, fails, floored and iters rather than at
   -90 dB, the main path's also with a lane that takes the redo ladder
   beside lanes that do not, and as two chained launches against one
-  (with and without such a lane).
+  (with and without such a lane; and the full path's production build).
 
 Skipped where g++ is absent.  A kernel logic fault shows here before any
 time on the card is spent.
@@ -239,26 +239,47 @@ def test_step_lane_takes_the_redo(host_lib, superover):
     assert (its[:, 3].numpy() > others[:, 0]).any()
 
 
-@pytest.mark.parametrize("case", ["steady", "redo"])
-def test_step_main_chained_launches_bitwise(host_lib, superover, case):
-    """The main path's production build run as two chained launches (3
-    samples, then 5 from the state the first left) against one launch of
-    all 8: bit for bit in y (the two launches' in turn), the state, and
-    fails, iters and floored (the two launches' sums), against the host
-    build's one launch and against the plain version's.  "redo": lane 3
-    of the eight starts off its steady point and takes the redo ladder
-    (gated Newton, homotopy, df rescue) while the others do not."""
+@pytest.mark.parametrize("case", ["steady", "redo", "full", "full redo"])
+def test_step_main_chained_launches_bitwise(host_lib, request, case):
+    """A production build run as two chained launches (3 samples, then 5
+    from the state the first left) against one launch of all 8: bit for
+    bit in y (the two launches' in turn), the state, and fails, iters and
+    floored (the two launches' sums), against the host build's one launch
+    and against the plain version's.  "steady", "redo": the main path's
+    build from the seeds; "redo": lane 3 of the eight starts off its
+    steady point and takes the redo ladder (gated Newton, homotopy, df
+    rescue) while the others do not.  "full": the full path's build (the
+    un-decomposed Super Over's 7x7, its redo's start kept in the carry)
+    from where 8 samples of its power-up sibling left 8 input levels;
+    "full redo": lane 3's extrapolation there turned the wrong way (dz/dp
+    negated), so that it takes more evaluations than from the point
+    itself, and more than its samples can take without the redo."""
     _, out = host_lib
-    fr = _main_runner(superover)
-    lanes = np.arange(1000, 1008)
-    state = _seeds(fr, lanes)
-    if case == "redo":
-        state["zw"][:, 3] *= 0.9
-        state["dzdp"][:, 3] = 0.0
-    u, lv, tol, gate = fr.prepare_inputs(
-        _sine(0.2, 8), S.lane_grid("pots", 4096)[3][lanes])
-    coef = fr._coef_tables(len(lanes))
+    if case.startswith("full"):
+        fr = FusedRunner(copy.deepcopy(request.getfixturevalue("full_model")),
+                         lane_scale_idx=(0,), powerup="safe", **PROD,
+                         device="cpu")
+        pr = fr._powerup_runner()
+        lane_values = np.linspace(0.1, 2.0, 8)[:, None]
+        u, lv, tol, gate = pr.prepare_inputs(_sine(0.2, 8), lane_values)
+        state = F.host_step(load_host(pr.plan, out), pr.plan, u, lv, tol,
+                            gate, pr.initial_state(8), pr._coef_tables(8))[1]
+    else:
+        fr = _main_runner(request.getfixturevalue("superover"))
+        lanes = np.arange(1000, 1008)
+        lane_values = S.lane_grid("pots", 4096)[3][lanes]
+        state = _seeds(fr, lanes)
+    u, lv, tol, gate = fr.prepare_inputs(_sine(0.2, 8), lane_values)
+    coef = fr._coef_tables(8)
     lib = load_host(fr.plan, out)
+    if case.endswith("redo"):
+        calm = F.host_step(lib, fr.plan, u, lv, tol, gate, state, coef)[3]
+        state = {k: v.clone() for k, v in state.items()}
+        if case == "full redo":
+            state["dzdp"][:, 3] *= -1.0
+        else:
+            state["zw"][:, 3] *= 0.9
+            state["dzdp"][:, 3] = 0.0
     first = F.host_step(lib, fr.plan, u[:3], lv, tol, gate, state, coef)
     second = F.host_step(lib, fr.plan, u[3:], lv, tol, gate, first[1], coef)
     chained = (torch.cat([first[0], second[0]]), second[1]) + tuple(
@@ -273,9 +294,15 @@ def test_step_main_chained_launches_bitwise(host_lib, superover, case):
             else:
                 assert torch.equal(c, o), name
     its = chained[3].numpy()
-    others = np.delete(its, 3, axis=1)
-    assert (others == others[:, :1]).all()
-    assert (its[:, 3] > others[:, 0]).any() == (case == "redo")
+    if case == "full redo":
+        # a sample without the redo: the fast path, the polish loop and at
+        # most ten verdict passes
+        most = 8 * (fr.fast_iters + fr.polish_iters + 10)
+        assert its[:, 3].sum() > max(calm[:, 3].sum(), most)
+    elif case != "full":
+        others = np.delete(its, 3, axis=1)
+        assert (others == others[:, :1]).all()
+        assert (its[:, 3] > others[:, 0]).any() == (case == "redo")
 
 
 def test_linear_model_without_subsystems(host_lib):

@@ -1,13 +1,15 @@
 """Per-lane tiny solves of the port against the JAX package's
 ``_solve_rows`` (acme_tpu/ops/fused.py), float32 and double-float, on
-seeded well- and ill-conditioned systems of size 1 to 5.
+seeded well- and ill-conditioned systems of size 1 to 5 and 7 (the
+un-decomposed Super Over's, with its six right-hand columns).
 
 The elimination is the same sequence of float32 operations in both, so
 the results must agree bit for bit (the JAX side runs eagerly, op by op).
 Beside them, the CUDA kernel's own elimination (``csrc/linsolve.cuh``,
 compiled for the host with g++; skipped without it) against this plain
 version on the systems where a decision is close: pivot ties, a zero
-pivot, singular systems, NaN and inf inputs, and unpivoted.
+pivot, singular systems, NaN and inf inputs, unpivoted, and systems
+whose pivot cascade trades rows at every elimination step.
 """
 
 import shutil
@@ -56,6 +58,11 @@ CASES = [(n, cond, m, refine)
          for n in (1, 2, 3, 4, 5)
          for cond in (1e2, 1e7)
          for m, refine in ((1, 0), (3, 1))]
+# the full path's 7x7, as its step runs it: a Newton step (1, 0), the df
+# verdict (6, 0) and the float32 polish with its columns (6, 1)
+CASES += [(7, cond, m, refine)
+          for cond in (1e2, 1e7)
+          for m, refine in ((1, 0), (6, 0), (6, 1))]
 
 
 @pytest.mark.parametrize("n,cond,m,refine", CASES)
@@ -135,7 +142,7 @@ def host_lib(tmp_path_factory):
 # main path's fragile 5x5 with 1 + 2 columns, the full path's 7x7 with
 # 1 + 5
 HARD_SIZES = [(3, 1), (4, 1), (5, 1), (3, 3), (4, 3), (5, 3), (7, 6)]
-HARD_KINDS = ["ties", "zero_pivot", "nan", "unpivoted"]
+HARD_KINDS = ["ties", "zero_pivot", "nan", "unpivoted", "swaps"]
 
 
 def hard_systems(kind, n, m, seed, count=LANES):
@@ -143,7 +150,11 @@ def hard_systems(kind, n, m, seed, count=LANES):
     pivot candidates tie and some systems are singular ("ties"); a zero
     leading pivot, a zero column in every eighth system ("zero_pivot");
     NaN and inf at random places of J and R ("nan"); seeded systems as
-    ``systems`` makes them ("unpivoted", solved without pivoting)."""
+    ``systems`` makes them ("unpivoted", solved without pivoting); systems
+    whose pivot cascade trades rows at every step ("swaps",
+    ``swapping_systems``)."""
+    if kind == "swaps":
+        return swapping_systems(n, m, seed, count)
     rng = np.random.default_rng(seed)
     J, R = systems(n, 1e4, m, seed)
     J, R = np.moveaxis(J, 2, 0)[:count], np.moveaxis(R, 2, 0)[:count]
@@ -158,6 +169,64 @@ def hard_systems(kind, n, m, seed, count=LANES):
             hit = rng.random(a.shape) < 0.05
             a[hit] = rng.choice([np.nan, np.inf, -np.inf], hit.sum())
     return J, R
+
+
+def cascade_trades(J, dtype):
+    """Whether the elimination of ``J`` (n, n), equilibrated as
+    ``solve_rows`` equilibrates it, trades rows at each step (n - 1
+    booleans): the running pivot row trades places with each later row
+    whose entry is larger, in ``dtype``."""
+    A = np.array(J, dtype=dtype)
+    rs = 1 / np.abs(A).max(axis=1)
+    A = A * rs[:, None].astype(dtype)
+    cs = 1 / np.abs(A).max(axis=0)
+    A = A * cs[None, :].astype(dtype)
+    n = len(A)
+    traded = []
+    for k in range(n - 1):
+        best, best_abs, any_trade = A[k].copy(), abs(A[k, k]), False
+        for i in range(k + 1, n):
+            if abs(A[i, k]) > best_abs:
+                best, A[i] = A[i].copy(), best
+                any_trade = True
+            best_abs = max(abs(A[i, k]), best_abs)
+        A[k] = best
+        A[k + 1:] -= np.outer(A[k + 1:, k] / A[k, k], A[k])
+        traded.append(any_trade)
+    return traded
+
+
+def swapping_systems(n, m, seed, count=LANES):
+    """(J (count, n, n), R (count, m, n)) float64 from a generator of
+    their own: row-permuted P L U products (unit lower L with entries below
+    1 in size) under random row and column scales, kept where the
+    equilibrated elimination trades rows at every step in float32 and in
+    float64 alike."""
+    rng = np.random.default_rng([seed, 1])
+    out = []
+    while len(out) < count:
+        L = np.tril(rng.uniform(-0.9, 0.9, (n, n)), -1) + np.eye(n)
+        U = np.triu(rng.normal(size=(n, n)), 1) + np.diag(
+            rng.uniform(1.0, 2.0, n) * rng.choice([-1.0, 1.0], n))
+        J = (L @ U)[rng.permutation(n)]
+        J = 10.0 ** rng.uniform(-3, 1, n)[:, None] * J \
+            * 10.0 ** rng.uniform(-1, 1, n)[None, :]
+        if all(cascade_trades(J, np.float32)) and \
+                all(cascade_trades(J, np.float64)):
+            out.append(J)
+    return np.stack(out), rng.normal(size=(count, m, n))
+
+
+@pytest.mark.parametrize("n,m", HARD_SIZES)
+@pytest.mark.parametrize("use_df", [0, 1])
+def test_swaps_trade_at_every_step(use_df, n, m):
+    """Every "swaps" system of the hard cases trades rows at every
+    elimination step."""
+    J, R = hard_systems("swaps", n, m, seed=100 * use_df + 10 * n + m)
+    assert J.shape == (LANES, n, n) and R.shape == (LANES, m, n)
+    for Ji in J:
+        for dtype in (np.float32, np.float64):
+            assert all(cascade_trades(Ji, dtype))
 
 
 def assert_same_bits(a, b):
