@@ -132,14 +132,17 @@ _PTR = ctypes.c_void_p
 
 def _bind(path, cuda):
     lib = ctypes.CDLL(path)
-    # the 26 tensors, T, L, the lane groups' barrier words and size
-    common = [_PTR] * 26 + [ctypes.c_int, ctypes.c_int, _PTR, ctypes.c_int]
+    # the 26 tensors, T, L, the lane groups' barrier words and size, the
+    # tier counters (or null)
+    common = [_PTR] * 26 + [ctypes.c_int, ctypes.c_int, _PTR, ctypes.c_int,
+                            _PTR]
     if cuda:
         lib.acme_fused_launch.argtypes = common + [ctypes.c_int, _PTR]
         lib.acme_fused_launch.restype = ctypes.c_int
         lib.acme_cuda_error.argtypes = [ctypes.c_int]
         lib.acme_cuda_error.restype = ctypes.c_char_p
         lib.acme_resident_lanes.argtypes = [ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_int,
                                             ctypes.POINTER(ctypes.c_int)]
         lib.acme_resident_lanes.restype = ctypes.c_int
     else:

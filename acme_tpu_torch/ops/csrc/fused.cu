@@ -52,6 +52,13 @@
 //    warp, and keeps them with its state for the whole run, so the tables
 //    cost 8 NVAR bytes of traffic per lane and launch.  Equal coefficients
 //    stay literals of the instruction stream, as on the TPU.
+//  * Its own tracing (trace.py): a launch handed a stats buffer runs the
+//    traced instantiation of the step, which counts, per lane and
+//    subsystem, the cycles of each solver tier (the clock at the tier
+//    boundaries, where the warp has reconverged) and the events of the
+//    rescue ladder in the lane's carry, and adds them to the buffer once
+//    at its end; a launch without one runs the step with no tracing code
+//    (step.cuh, "the tier counters").  One build holds both.
 //  * Lane groups (fast_verify="group" with a fast path, a VERIFY_GROUP
 //    build): the TPU kernel decides keep-or-redo once per grid block of
 //    lanes, so here the lanes of a group (2048 by default: 64 blocks, more
@@ -86,7 +93,9 @@ using acme::BLOCK;
 using acme::cmax1;
 using acme::Lane;
 using acme::NCF;
+using acme::NCF_TR;
 using acme::NCI;
+using acme::NCI_TR;
 using namespace acme_model;
 
 struct Args {
@@ -106,6 +115,10 @@ struct Args {
   // each group's four barrier words at gwords[4 g]
   int* gwords;
   int Lg;
+  // the tier counters (step.cuh Stat), (NSTAT, max(NSUB, 1), L): lane l's
+  // counter c of subsystem k at (c * NS1 + k) * L + l, to which the launch
+  // adds its own; null: the launch counts nothing
+  long long* stats;
 };
 
 // set up lane l's place in its lane group (a VERIFY_GROUP build; `host`
@@ -121,12 +134,15 @@ HD inline void join_group(LaneT& ln, const Args& a, int l, void* host) {
 }
 
 // one lane's whole run: load its state into its carry (f, n: the first
-// float and int of it), step every sample, store it back
+// float and int of it), step every sample, store it back; TR: the traced
+// step, for a launch with a stats buffer
+template <bool TR>
 ACME_FORCEINLINE HD void run_lane(const Args& a, int l, float* f, int* n,
-                        void* host_group = nullptr) {
+                                  void* host_group = nullptr) {
   const int L = a.L;
   Lane ln(f, n);
   join_group(ln, a, l, host_group);
+  if constexpr (TR) acme::tier_start(ln);
   for (int i = 0; i < NX; ++i) ln.x[i] = a.x[i * L + l], ln.xlo[i] = a.xlo[i * L + l];
   for (int i = 0; i < NNT; ++i) {
     ln.z[i] = a.z[i * L + l];
@@ -147,8 +163,9 @@ ACME_FORCEINLINE HD void run_lane(const Args& a, int l, float* f, int* n,
   ACME_ROLLED
   for (int t = 0; t < a.T; ++t) {
     float yv[YR];
-    acme::sample(ln, a.u + (size_t)t * UT, yv);
+    acme::sample<TR>(ln, a.u + (size_t)t * UT, yv);
     for (int o = 0; o < NY; ++o) a.y[((size_t)t * YR + o) * L + l] = yv[o];
+    if constexpr (TR) acme::tier_sample(ln);
   }
   for (int i = 0; i < NX; ++i) a.xo[i * L + l] = ln.x[i], a.xloo[i * L + l] = ln.xlo[i];
   for (int i = 0; i < NNT; ++i) {
@@ -172,33 +189,53 @@ ACME_FORCEINLINE HD void run_lane(const Args& a, int l, float* f, int* n,
   if (NSUB == 0) a.pmodeo[l] = a.pmode[l], a.iters[l] = 0;
   a.fails[l] = ln.fails;
   a.floored[l] = ln.floored;
+  if constexpr (TR) {
+    // the lane's whole launch, then its counters added to the buffer
+    constexpr int TOTAL = acme::ST_TOTAL * acme::NS1;
+    acme::stat_set(ln, TOTAL, acme::stat_get(ln, TOTAL) + acme::launch_clock());
+    for (int i = 0; i < acme::NCS; ++i)
+      a.stats[(size_t)i * L + l] += acme::stat_get(ln, i);
+  }
 }
 
 #ifndef __CUDACC__
-// the same on the host: the lane's carry in arrays of its own
+// the same on the host: the lane's carry in arrays of its own, of the
+// traced step's size
 inline void run_lane_host(const Args& a, int l, void* host_group = nullptr) {
-  float f[NCF];
-  int n[NCI];
-  run_lane(a, l, f, n, host_group);
+  float f[NCF_TR];
+  int n[NCI_TR];
+  if (a.stats)
+    run_lane<true>(a, l, f, n, host_group);
+  else
+    run_lane<false>(a, l, f, n, host_group);
 }
 #endif
 
 #ifdef __CUDACC__
-// the block's carry in static shared memory: it must fit the 48 KB a
-// block takes without opting in
-constexpr size_t CARRY_BYTES = sizeof(float) * NCF * BLOCK +
-                               sizeof(int) * NCI * BLOCK;
+// the block's carry in static shared memory: the traced step's, the
+// larger, must fit the 48 KB a block takes without opting in
+constexpr size_t CARRY_BYTES = sizeof(float) * NCF_TR * BLOCK +
+                               sizeof(int) * NCI_TR * BLOCK;
 static_assert(CARRY_BYTES <= 48 * 1024,
               "the block's carry exceeds 48 KB of static shared memory");
 // per-thread stack for the frames of the functions that stay calls
 constexpr size_t STACK_BYTES = 16384;
 
+// TR: the traced step, whose carry also holds the tier counters; the
+// untraced step's carry is the step's alone
+template <bool TR>
 __global__ void __launch_bounds__(BLOCK, 1) acme_fused_kernel(Args a) {
-  __shared__ float carry_f[NCF * BLOCK];
-  __shared__ int carry_n[NCI * BLOCK];
+  __shared__ float carry_f[(TR ? NCF_TR : NCF) * BLOCK];
+  __shared__ int carry_n[(TR ? NCI_TR : NCI) * BLOCK];
   const int t = threadIdx.x;
   const int l = a.lane0 + blockIdx.x * BLOCK + t;
-  if (l < a.L) run_lane(a, l, carry_f + t, carry_n + t);
+  if (l < a.L) run_lane<TR>(a, l, carry_f + t, carry_n + t);
+}
+
+// the kernel a launch runs: the traced step when it has a stats buffer
+inline const void* kernel_for(const Args& a) {
+  return a.stats ? (const void*)acme_fused_kernel<true>
+                 : (const void*)acme_fused_kernel<false>;
 }
 #endif
 
@@ -223,7 +260,7 @@ Args make_args(const float* u, const float* lanes, const float* tol,
                float* y, float* xo, float* xloo, float* zo, float* zloo,
                float* zwo, float* wpo, float* dzdpo, float* pmodeo,
                int* fails, int* iters, int* floored, int T, int L,
-               int* gwords, int Lg) {
+               int* gwords, int Lg, long long* stats) {
   Args a;
   a.u = u, a.lanes = lanes, a.tol = tol, a.gate = gate;
   a.ch = ch, a.cl = cl;
@@ -234,6 +271,7 @@ Args make_args(const float* u, const float* lanes, const float* tol,
   a.fails = fails, a.iters = iters, a.floored = floored;
   a.T = T, a.L = L, a.lane0 = 0;
   a.gwords = gwords, a.Lg = Lg;
+  a.stats = stats;
   return a;
 }
 
@@ -285,26 +323,29 @@ void solve_batch(int count, int use_df, int refine, int pivot,
       const float *dzdp, const float *pmode, float *y, float *xo,            \
       float *xloo, float *zo, float *zloo, float *zwo, float *wpo,           \
       float *dzdpo, float *pmodeo, int *fails, int *iters, int *floored,     \
-      int T, int L, int *gwords, int Lg
+      int T, int L, int *gwords, int Lg, long long *stats
 #define ACME_PASS                                                            \
   u, lanes, tol, gate, ch, cl, x, xlo, z, zlo, zw, wp, dzdp, pmode, y, xo,   \
       xloo, zo, zloo, zwo, wpo, dzdpo, pmodeo, fails, iters, floored, T, L,  \
-      gwords, Lg
+      gwords, Lg, stats
 
 extern "C" {
 
 #ifdef __CUDACC__
 // The lanes of whole lane groups of Lg lanes that card `device` holds
-// resident at once for this build (0: not one group), into *lanes; returns
-// a CUDA error code.  A cooperative launch needs every block of its grid
-// resident, by the same occupancy count.
-int acme_resident_lanes(int device, int Lg, int* lanes) {
+// resident at once for this build's step (traced: the traced step's, else
+// the untraced one's; 0: not one group), into *lanes; returns a CUDA error
+// code.  A cooperative launch needs every block of its grid resident, by
+// the same occupancy count.
+int acme_resident_lanes(int device, int Lg, int traced, int* lanes) {
   int sms = 0, per_sm = 0;
   cudaError_t e = cudaDeviceGetAttribute(
       &sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return (int)e;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, acme_fused_kernel, BLOCK, 0);
+      &per_sm,
+      traced ? acme_fused_kernel<true> : acme_fused_kernel<false>, BLOCK,
+      0);
   if (e != cudaSuccess) return (int)e;
   *lanes = Lg > 0 ? per_sm * sms / ((Lg + BLOCK - 1) / BLOCK) * Lg : 0;
   return 0;
@@ -331,6 +372,13 @@ int acme_fused_launch(ACME_ARGS, int device, void* stream) {
       e = cudaDeviceGetLimit(&cur, cudaLimitStackSize);
       if (e == cudaSuccess && cur < STACK_BYTES)
         e = cudaDeviceSetLimit(cudaLimitStackSize, STACK_BYTES);
+      // both steps loaded now (the runtime loads a kernel at its first
+      // launch otherwise), so a traced window does not load one
+      cudaFuncAttributes attr;
+      if (e == cudaSuccess)
+        e = cudaFuncGetAttributes(&attr, acme_fused_kernel<false>);
+      if (e == cudaSuccess)
+        e = cudaFuncGetAttributes(&attr, acme_fused_kernel<true>);
       if (e != cudaSuccess) return (int)e;
       stack_set[device] = true;
     }
@@ -340,17 +388,21 @@ int acme_fused_launch(ACME_ARGS, int device, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if constexpr (VERIFY_GROUP) {
     int batch = 0;
-    e = (cudaError_t)acme_resident_lanes(device, Lg, &batch);
+    e = (cudaError_t)acme_resident_lanes(device, Lg, a.stats != nullptr,
+                                         &batch);
     if (e != cudaSuccess) return (int)e;
     if (batch == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
     return for_batches(a, batch, [s](Args b, int n) {
       void* params[] = {&b};
       return (int)cudaLaunchCooperativeKernel(
-          (const void*)acme_fused_kernel, dim3((n + BLOCK - 1) / BLOCK),
-          dim3(BLOCK), params, 0, s);
+          kernel_for(b), dim3((n + BLOCK - 1) / BLOCK), dim3(BLOCK), params,
+          0, s);
     });
   }
-  acme_fused_kernel<<<(L + BLOCK - 1) / BLOCK, BLOCK, 0, s>>>(a);
+  if (a.stats)
+    acme_fused_kernel<true><<<(L + BLOCK - 1) / BLOCK, BLOCK, 0, s>>>(a);
+  else
+    acme_fused_kernel<false><<<(L + BLOCK - 1) / BLOCK, BLOCK, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 

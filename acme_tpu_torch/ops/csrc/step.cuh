@@ -123,8 +123,52 @@ constexpr int C_X = 0, C_XLO = C_X + NX, C_Z = C_XLO + NX, C_ZLO = C_Z + NNT,
               C_PMODE = C_ZS + NNT_C,
               C_TOL = C_PMODE + NSUB,
               C_GATE = C_TOL + NSUB, C_CV = C_GATE + 3 * NSUB,
-              C_CVL = C_CV + NVAR, C_LV = C_CVL + NVAR;
-constexpr int NCF = cmax1<C_LV + NU_L>::v, NCI = cmax1<NSUB>::v;
+              C_CVL = C_CV + NVAR, C_LV = C_CVL + NVAR, C_TR = C_LV + NU_L;
+constexpr int NCF = cmax1<C_TR>::v, NCI = cmax1<NSUB>::v;
+
+// The lane's tier counters, for a launch handed a stats buffer (fused.cu
+// Args::stats; trace.py COUNTERS names the rows in this order): per
+// subsystem the clock cycles of each solver tier -- the warm start (p,
+// pfull and the extrapolated start), the fast steps, pass 0 of the polish
+// with its verdict and fold passes up to the keep test, the redo (the
+// robust path and its polish) and the commit (acceptance, the origin
+// update; the last subsystem's also the output row and the state update)
+// -- and the lane's whole launch (subsystem 0's column; the others hold
+// 0); then the counts: subsystem solves, redos (the keep test failed),
+// homotopy entries, df rescues, fold passes and the evaluations of the
+// fast, polish and redo tiers, which sum to what the solve adds to iters.
+// A build without the fast path takes the robust path every sample: its
+// full_solve counts as redo and its polish as polish, and no redo is
+// counted, as there is no keep test.
+enum Stat {
+  ST_WARM, ST_FAST, ST_POLISH, ST_REDO, ST_COMMIT, ST_TOTAL, ST_SOLVES,
+  ST_REDOS, ST_HOMOTOPY, ST_DF_RESCUES, ST_FOLD_PASSES, ST_EV_FAST,
+  ST_EV_POLISH, ST_EV_REDO, NSTAT
+};
+// the counters' subsystem columns (one without subsystems); counter c of
+// subsystem k is the carry's counter c * NS1 + k
+constexpr int NS1 = cmax1<NSUB>::v, NCS = NSTAT * NS1;
+// What a sample's solves leave for its counters: after the iteration
+// counts, per subsystem the clock's readings at its tier boundaries (the
+// warm start's end, the fast steps' or the robust path's, the keep test,
+// the end of the redo or of the polish, the end of the solve) and its
+// ladder's events (a homotopy entry, a df rescue); then the clock at the
+// sample's start and end; then the counters, each two ints (its low word
+// first), where the loop's other ints are, so that counting takes no
+// register of the loop's own.  Floats, at C_TR (TR_*): per subsystem its
+// evaluations, the redo's robust path's, its last polish's, and the
+// polish passes before each polish's verdict (the first polish's, the
+// redo's), from which its fold passes follow.  Only the traced step's
+// carry holds them (NCF_TR floats, NCI_TR ints; the untraced step's is
+// NCF, NCI).
+enum Tick {
+  TK_WARM, TK_FAST, TK_KEEP, TK_LOOP, TK_DONE, TK_HOMOTOPY, TK_DF_RESCUE,
+  NTK
+};
+enum Tr { TR_ITV, TR_SV, TR_K, TR_VB0, TR_VB1, NTR };
+constexpr int TS_START = NTK * NS1, TS_END = TS_START + 1,
+              C_STAT = NS1 + TS_END + 1;
+constexpr int NCF_TR = cmax1<C_TR + NTR * NSUB>::v, NCI_TR = C_STAT + 2 * NCS;
 #ifdef __CUDA_ARCH__
 constexpr int CARRY_STRIDE = BLOCK;
 #else
@@ -142,8 +186,8 @@ struct Col {
 // and its two failure counts
 struct Lane : GroupOf<VERIFY_GROUP> {
   Col<float> x, xlo, z, zlo, zw, wp, dzdp, pmode, tol, gate, cv, cvl, lv,
-      cols, pf, pflo, p, zs;
-  Col<int> iters;
+      cols, pf, pflo, p, zs, tr;
+  Col<int> iters, tick, stat;
   int fails, floored;
   HD Lane(float* f, int* n)
       : x{f + C_X * CARRY_STRIDE}, xlo{f + C_XLO * CARRY_STRIDE},
@@ -154,9 +198,74 @@ struct Lane : GroupOf<VERIFY_GROUP> {
         cv{f + C_CV * CARRY_STRIDE}, cvl{f + C_CVL * CARRY_STRIDE},
         lv{f + C_LV * CARRY_STRIDE}, cols{f + C_COLS * CARRY_STRIDE},
         pf{f + C_PF * CARRY_STRIDE}, pflo{f + C_PFLO * CARRY_STRIDE},
-        p{f + C_P * CARRY_STRIDE}, zs{f + C_ZS * CARRY_STRIDE}, iters{n},
-        fails(0), floored(0) {}
+        p{f + C_P * CARRY_STRIDE}, zs{f + C_ZS * CARRY_STRIDE},
+        tr{f + C_TR * CARRY_STRIDE}, iters{n}, tick{n + NS1 * CARRY_STRIDE},
+        stat{n + C_STAT * CARRY_STRIDE}, fails(0), floored(0) {}
 };
+
+// -- the tier counters -------------------------------------------------------
+//
+// The step is compiled twice into each build (the template flag TR): a
+// launch without a stats buffer runs the step as it is, with no tracing
+// code at all, and a launch with one runs the traced step.  (With the
+// marks in the only step, the full path's untraced launches took 6.8 %
+// longer over ten chained blocks on the H100, though ptxas reported the
+// same registers and no spills.)
+// There a solve only leaves marks in the carry: the clock at each tier
+// boundary and its ladder's events, each a store, with no branch and
+// nothing held in registers.  Every reading sits where the warp's lanes
+// have reconverged, so a tier's cycles are the warp's, its wait for
+// diverged lanes included.  After each sample the traced launch turns the
+// marks into its counters (tier_sample), where the registers are free.
+
+// the SM's cycle counter, its low 32 bits (0 on the host, which counts
+// events alone); a tier's cycles within one sample fit them
+ACME_FORCEINLINE HD unsigned tier_clock() {
+#ifdef __CUDA_ARCH__
+  unsigned t;
+  asm volatile("mov.u32 %0, %%clock;" : "=r"(t));
+  return t;
+#else
+  return 0;
+#endif
+}
+
+// all 64 bits of it, for a lane's whole launch
+ACME_FORCEINLINE HD long long launch_clock() {
+#ifdef __CUDA_ARCH__
+  return clock64();
+#else
+  return 0;
+#endif
+}
+
+// (in a traced step) the clock into mark i of subsystem K
+template <bool TR, int K>
+ACME_FORCEINLINE HD void stamp(const Lane& ln, int i) {
+  if constexpr (TR) ln.tick[NTK * K + i] = (int)tier_clock();
+}
+
+// counter i
+ACME_FORCEINLINE HD long long stat_get(const Lane& ln, int i) {
+  return (long long)((unsigned long long)(unsigned)ln.stat[2 * i + 1] << 32 |
+                     (unsigned)ln.stat[2 * i]);
+}
+
+ACME_FORCEINLINE HD void stat_set(const Lane& ln, int i, long long v) {
+  ln.stat[2 * i] = (int)(unsigned)v;
+  ln.stat[2 * i + 1] = (int)(unsigned)((unsigned long long)v >> 32);
+}
+
+// n more on counter ROW of subsystem K
+template <int ROW, int K>
+ACME_FORCEINLINE HD void tier_add(const Lane& ln, long long n) {
+  stat_set(ln, ROW * NS1 + K, stat_get(ln, ROW * NS1 + K) + n);
+}
+
+// the cycles from clock reading a to b
+ACME_FORCEINLINE HD long long cycles(int a, int b) {
+  return (long long)((unsigned)b - (unsigned)a);
+}
 
 // a lane group on the host, whose lanes run on threads of their own: a
 // barrier that also ORs the lanes' failures, in the card's two slots
@@ -567,12 +676,18 @@ ACME_FORCEINLINE HD void df_rescue(const Ctx<S>& cx, Solved<S>& st) {
   st.itv = st.itv + (float)k;
 }
 
-template <class S>
+template <class S, bool TR>
 ACME_FORCEINLINE HD void full_solve(const Ctx<S>& cx,
                                     const float (&zs)[S::NN], Solved<S>& st) {
   run_newton<S>(cx, zs, st);
-  if (!(st.r < st.g)) homotopy_rescue<S>(cx, st);
-  if (!(st.r < st.g)) df_rescue<S>(cx, st);
+  if (!(st.r < st.g)) {
+    if constexpr (TR) cx.ln->tick[NTK * S::IDX + TK_HOMOTOPY] = 1;
+    homotopy_rescue<S>(cx, st);
+  }
+  if (!(st.r < st.g)) {
+    if constexpr (TR) cx.ln->tick[NTK * S::IDX + TK_DF_RESCUE] = 1;
+    df_rescue<S>(cx, st);
+  }
 }
 
 // -- the polish and the verdict ----------------------------------------------
@@ -750,9 +865,10 @@ ACME_FORCEINLINE HD void vd_keep(const Ctx<S>& cx, const PolishEval<S>& pe,
 
 // the polish loop (plain, compensated or df) with its unrolled prefix,
 // then the verdict, if any, and the fold continuation (fused.py:1750-2016)
-template <class S>
+template <class S, bool TR>
 ACME_FORCEINLINE HD void polish_all(const Ctx<S>& cx,
-                                    const float (&zs)[S::NN], PolishSt<S>& st) {
+                                    const float (&zs)[S::NN], PolishSt<S>& st,
+                                    int pass = 0) {
   ACME_UNROLL
   for (int a = 0; a < S::NN; ++a) st.z[a] = zs[a], st.zlo[a] = 0.0f;
   zero_cols<S>(st);
@@ -805,6 +921,13 @@ ACME_FORCEINLINE HD void polish_all(const Ctx<S>& cx,
     // residual stays above VTGT, each kept where it takes the residual
     // down by a tenth: one pass in the code
     float rm_prev = 0.0f;
+    // the passes so far (pass: 0 the first polish, 1 the redo's): the
+    // fold passes are the verdict's, each counted in st.k, but its first.
+    // A store here and nothing in the loop: on the H100, counting inside
+    // it made the traced step spill (2.4 times the time), and adding to a
+    // counter around it cost 6-7 %.
+    if constexpr (TR && S::FOLD)
+      cx.ln->tr[NTR * S::IDX + TR_VB0 + pass] = st.k;
     ACME_ROLLED
     for (int i = 0; i <= (S::FOLD ? 9 : 0); ++i) {
       if (i > 0 && !((rm_prev >= VTGT) && jfinite(rm_prev))) break;
@@ -824,7 +947,7 @@ ACME_FORCEINLINE HD void polish_all(const Ctx<S>& cx,
 // its p from x, u and the sample's z so far (the carry's z, which holds
 // the earlier subsystems' solutions of this sample), its solve, and its
 // part of z, the warm start and the counters written back to the carry
-template <class S>
+template <class S, bool TR>
 ACME_FORCEINLINE HD void solve_sub(Lane& ln, const float* u, bool& any_fail,
                                    bool& any_floor) {
   constexpr int NN = S::NN, NP = Ctx<S>::NP;
@@ -871,14 +994,21 @@ ACME_FORCEINLINE HD void solve_sub(Lane& ln, const float* u, bool& any_fail,
     }
   }
   carry_fence<S>();
+  stamp<TR, S::IDX>(ln, TK_WARM);
   PolishSt<S> st;
   float itv;
   if constexpr (!FAST_PATH) {
     // the robust path from the start, then the polish (fused.py:2147-2151)
     Solved<S> sv;
-    full_solve<S>(cx, z0, sv);
-    polish_all<S>(cx, sv.z, st);
+    full_solve<S, TR>(cx, z0, sv);
+    stamp<TR, S::IDX>(ln, TK_FAST);
+    polish_all<S, TR>(cx, sv.z, st);
+    stamp<TR, S::IDX>(ln, TK_LOOP);
     itv = sv.itv + st.k;
+    if constexpr (TR) {
+      ln.tr[NTR * S::IDX + TR_ITV] = itv;
+      ln.tr[NTR * S::IDX + TR_K] = st.k;
+    }
   } else {
     // unguarded fast path with the already-converged guard (no step with
     // polish_only)
@@ -916,14 +1046,16 @@ ACME_FORCEINLINE HD void solve_sub(Lane& ln, const float* u, bool& any_fail,
       for (int a = 0; a < NN; ++a) ln.zs[S::OFF + a] = zs[a];
       carry_fence<S>();
     }
+    stamp<TR, S::IDX>(ln, TK_FAST);
     ACME_ROLLED
     for (int pass = 0; pass < 2; ++pass) {
-      polish_all<S>(cx, zp, st);
+      polish_all<S, TR>(cx, zp, st, pass);
       if (pass == 0) {
         itv = (float)FAST_ITERS + st.k;
         const float keep_thr = KEEP_TOL ? st.tp : st.gf;
         bool ok1 =
             (st.rm < keep_thr) || ((st.rm1 < st.tl1) && (st.pstall > 0.5f));
+        stamp<TR, S::IDX>(ln, TK_KEEP);
         if (!(VERIFY_ALWAYS || (VERIFY_GROUP ? !group_all(ln, ok1) : !ok1)))
           break;
         Solved<S> sv;
@@ -931,13 +1063,19 @@ ACME_FORCEINLINE HD void solve_sub(Lane& ln, const float* u, bool& any_fail,
           ACME_UNROLL
           for (int a = 0; a < NN; ++a) zs[a] = ln.zs[S::OFF + a];
         }
-        full_solve<S>(cx, zs, sv);
+        full_solve<S, TR>(cx, zs, sv);
         ACME_UNROLL
         for (int a = 0; a < NN; ++a) zp[a] = sv.z[a];
         sv_itv = sv.itv;
       } else {
         itv = itv + (sv_itv + st.k);
       }
+    }
+    stamp<TR, S::IDX>(ln, TK_LOOP);
+    if constexpr (TR) {
+      ln.tr[NTR * S::IDX + TR_ITV] = itv;
+      ln.tr[NTR * S::IDX + TR_SV] = sv_itv;
+      ln.tr[NTR * S::IDX + TR_K] = st.k;
     }
   }
   carry_fence<S>();
@@ -991,15 +1129,18 @@ ACME_FORCEINLINE HD void solve_sub(Lane& ln, const float* u, bool& any_fail,
     for (int i = 0; i < S::NP; ++i) ln.wp[S::POFF + i] = p_at<S>(cx, i);
   }
   carry_fence<S>();
+  stamp<TR, S::IDX>(ln, TK_DONE);
 }
 
 // one sample: subsystems in chain order (each writes its part of the
 // carry's z in place), then output row and state update
+template <bool TR>
 ACME_FORCEINLINE HD void sample(Lane& ln, const float* u_t, float* y) {
+  if constexpr (TR) ln.tick[TS_START] = (int)tier_clock();
   float u[cmax1<NU>::v];
   u_full(u_t, ln.lv, u);
   bool any_fail = false, any_floor = false;
-#define ACME_SOLVE(S) solve_sub<S>(ln, u, any_fail, any_floor);
+#define ACME_SOLVE(S) solve_sub<S, TR>(ln, u, any_fail, any_floor);
   ACME_FOR_EACH_SUB(ACME_SOLVE)
 #undef ACME_SOLVE
   float xn[cmax1<NX>::v], xnlo[cmax1<NX>::v];
@@ -1021,6 +1162,71 @@ ACME_FORCEINLINE HD void sample(Lane& ln, const float* u_t, float* y) {
     ln.fails += any_fail ? 1 : 0;
     ln.floored += any_floor ? 1 : 0;
   }
+  if constexpr (TR) ln.tick[TS_END] = (int)tier_clock();
+}
+
+// one subsystem's part of a sample's counters, from its marks; prev: the
+// clock where its warm start began; returns the clock at its end
+template <class S>
+ACME_FORCEINLINE HD int tier_sub(const Lane& ln, int prev) {
+  constexpr int K = S::IDX, T = NTK * K, R = NTR * K;
+  constexpr bool FOLDS = S::FOLD && VERDICT != NONE;
+  const int warm = ln.tick[T + TK_WARM], fast = ln.tick[T + TK_FAST],
+            keep = ln.tick[T + TK_KEEP], loop = ln.tick[T + TK_LOOP],
+            done = ln.tick[T + TK_DONE];
+  tier_add<ST_WARM, K>(ln, cycles(prev, warm));
+  const float itv = ln.tr[R + TR_ITV], k = ln.tr[R + TR_K];
+  long long ev_polish, ev_redo, fold = 0;
+  if constexpr (FAST_PATH) {
+    tier_add<ST_FAST, K>(ln, cycles(warm, fast));
+    tier_add<ST_POLISH, K>(ln, cycles(fast, keep));
+    tier_add<ST_REDO, K>(ln, cycles(keep, loop));
+    // a redo ran its robust path, which counts one evaluation or more
+    const float sv_itv = ln.tr[R + TR_SV];
+    const bool redo = sv_itv > 0.0f;
+    ev_redo = redo ? (long long)(sv_itv + k) : 0;
+    ev_polish = (long long)itv - FAST_ITERS - ev_redo;
+    tier_add<ST_REDOS, K>(ln, redo ? 1 : 0);
+    tier_add<ST_EV_FAST, K>(ln, FAST_ITERS);
+    // each polish's passes after its verdict's first: the first polish
+    // made ev_polish, the redo's made k
+    if constexpr (FOLDS)
+      fold = ev_polish - (long long)ln.tr[R + TR_VB0] - 1 +
+             (redo ? (long long)(k - ln.tr[R + TR_VB1]) - 1 : 0);
+  } else {
+    // the robust path ends at the fast path's mark
+    tier_add<ST_REDO, K>(ln, cycles(warm, fast));
+    tier_add<ST_POLISH, K>(ln, cycles(fast, loop));
+    ev_polish = (long long)k;
+    ev_redo = (long long)itv - (long long)k;
+    if constexpr (FOLDS) fold = (long long)(k - ln.tr[R + TR_VB0]) - 1;
+  }
+  tier_add<ST_EV_POLISH, K>(ln, ev_polish);
+  tier_add<ST_EV_REDO, K>(ln, ev_redo);
+  tier_add<ST_FOLD_PASSES, K>(ln, fold);
+  tier_add<ST_COMMIT, K>(ln, cycles(loop, done));
+  tier_add<ST_SOLVES, K>(ln, 1);
+  tier_add<ST_HOMOTOPY, K>(ln, ln.tick[T + TK_HOMOTOPY]);
+  tier_add<ST_DF_RESCUES, K>(ln, ln.tick[T + TK_DF_RESCUE]);
+  ln.tick[T + TK_HOMOTOPY] = ln.tick[T + TK_DF_RESCUE] = 0;
+  return done;
+}
+
+// (in a launch that counts, after each sample) the sample's counters
+ACME_FORCEINLINE HD void tier_sample(const Lane& ln) {
+  int prev = ln.tick[TS_START];
+#define ACME_TIER(S) prev = tier_sub<S>(ln, prev);
+  ACME_FOR_EACH_SUB(ACME_TIER)
+#undef ACME_TIER
+  // the output row and the state update, with the last subsystem's commit
+  tier_add<ST_COMMIT, NS1 - 1>(ln, cycles(prev, ln.tick[TS_END]));
+}
+
+// (in a launch that counts, at its start) no marks or counts yet
+ACME_FORCEINLINE HD void tier_start(const Lane& ln) {
+  for (int i = 0; i < NCS; ++i) stat_set(ln, i, 0);
+  for (int i = 0; i < TS_START; ++i) ln.tick[i] = 0;
+  stat_set(ln, ST_TOTAL * NS1, -launch_clock());
 }
 
 }  // namespace acme

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from . import dfmath as dfm
+from .. import trace
 from .. import xp as txp
 from .linsolve_tiny import solve_rows
 
@@ -170,10 +171,17 @@ class FusedInfo(NamedTuple):
     ``fails`` (L,): samples on which any subsystem missed its acceptance
     gate.  ``iters`` (L, nsub): Newton evaluations per subsystem, counting
     each lane's own loop trips.  ``floored`` (L,): samples accepted above
-    the gate through the polish floor-stall certificate."""
+    the gate through the polish floor-stall certificate.  ``tiers``
+    (counters, nsub, L) int64, while tracing is on and the runner is on a
+    card (None otherwise): the kernel's tier counters (``trace.COUNTERS``)
+    summed over every traced call of the runner's build at this lane count,
+    this call's included (the recorder's buffer, which later calls add to;
+    a mesh run's entries' gathered; a cold run's the power-up sibling's
+    and the runner's added)."""
     fails: torch.Tensor
     iters: torch.Tensor
     floored: torch.Tensor = None
+    tiers: torch.Tensor = None
 
 
 # -- EFT helpers (fused.py:120-155) -------------------------------------------
@@ -893,6 +901,7 @@ class FusedRunner:
             return lane_values.shape[0]
         return 128
 
+    @trace.spanned("acme.lane_tolerances")
     def _lane_tolerances(self, lane_values_centered, L):
         """Per-lane loop tolerance/gate and acceptance gate
         (fused.py:2756-2817): (tol (nsub, L), gates (3 nsub, L)) float32."""
@@ -936,6 +945,7 @@ class FusedRunner:
         return tol_l, gate_l
 
     # -- run ------------------------------------------------------------------
+    @trace.spanned("acme.prepare_inputs")
     def prepare_inputs(self, u_time, lane_values):
         """Centered float32 kernel inputs on the runner's device:
         (u (T, nu_t), lanes (nu_l, L), tol (nsub, L), gates (3 nsub, L)).
@@ -977,16 +987,22 @@ class FusedRunner:
             self._pw_runner = r
         return self._pw_runner
 
+    @trace.spanned("acme.check_outputs")
     def _check_outputs(self, y, info):
         """Raise on non-finite output, warn on fails (fused.py:2868-2886):
-        one device-side reduction, two scalars to the host."""
-        finite = bool(torch.isfinite(y).all())
+        one device-side reduction, two scalars to the host (each an
+        ``acme.wait`` span)."""
+        finite = torch.isfinite(y).all()
+        with trace.span("acme.wait"):
+            finite = bool(finite)
         if not finite:
             raise RuntimeError(
                 "fused run produced non-finite output; inspect "
                 "FusedInfo.fails for the offending lanes (reference "
                 "semantics: ACME.jl:692-694)")
-        nfail = int(info.fails.sum())
+        nfail = info.fails.sum()
+        with trace.span("acme.wait"):
+            nfail = int(nfail)
         if nfail:
             warnings.warn(
                 f"fused run: {nfail} subsystem solve(s) across all lanes "
@@ -994,6 +1010,7 @@ class FusedRunner:
                 "output may be degraded on those lanes; see "
                 "FusedInfo.fails). Reference warn path: ACME.jl:688-691.")
 
+    @trace.spanned("acme.run")
     def run(self, u_time, lane_values, state=None, check=True):
         """u_time: (nu_t, T); lane_values: (L, nu_l).  Returns
         (y (L, ny, T), state, FusedInfo), all tensors on the runner's
@@ -1011,25 +1028,7 @@ class FusedRunner:
         if state is None and self.powerup_steady:
             state = self.steady_initial_state(lane_values)
         if state is None and self._pw_overrides is not None:
-            ut = np.asarray(u_time, float)
-            T0 = ut.shape[1]
-            W = min(self.powerup_samples, T0)
-            pr = self._powerup_runner()
-            if self.plan.verify_group or pr.plan.verify_group:
-                self.group_size(self._lanes(lane_values))
-            if W >= T0:
-                return pr.run(ut, lane_values, state=None, check=check)
-            y1, state, info1 = pr.run(ut[:, :W], lane_values, state=None,
-                                      check=False)
-            y2, state, info2 = self.run(ut[:, W:], lane_values, state=state,
-                                        check=False)
-            y = torch.cat([y1, y2], dim=2)
-            info = FusedInfo(fails=info1.fails + info2.fails,
-                             iters=info1.iters + info2.iters,
-                             floored=info1.floored + info2.floored)
-            if check:
-                self._check_outputs(y, info)
-            return y, state, info
+            return self._run_powerup(u_time, lane_values, check)
         u, lv, tol_l, gate_l = self.prepare_inputs(u_time, lane_values)
         L = lv.shape[1]
         if state is None:
@@ -1037,13 +1036,52 @@ class FusedRunner:
         state = _complete_state(self.plan, state, lv)
         args = (u, lv, tol_l, gate_l, state, self._coef_tables(L),
                 self._group(L))
+        stats = self._tier_buffers(L) if lv.device.type == "cuda" else None
         if self.mesh is None:
-            out = fused_step(self.plan, *args)
+            out = fused_step(self.plan, *args, stats=stats)
+            tiers = stats
         else:
-            out = self._mesh_step(fused_step, *args)
+            out = self._mesh_step(fused_step, *args, stats=stats)
+            tiers = None if stats is None else torch.cat(
+                [t.to(self.device) for t in stats], dim=2)
         y, state, fails, iters, floored = out
         y = y.permute(2, 1, 0)[:, :self.ny, :]
-        info = FusedInfo(fails=fails, iters=iters.T, floored=floored)
+        info = FusedInfo(fails=fails, iters=iters.T, floored=floored,
+                         tiers=tiers)
+        if check:
+            self._check_outputs(y, info)
+        return y, state, info
+
+    def _tier_buffers(self, L):
+        """The recorder's stats buffer for a run over L lanes (with a mesh,
+        one per entry); None while tracing is off."""
+        if self.mesh is None:
+            return trace.tier_buffer(self.plan, L, self.device)
+        Ld = L // len(self.mesh)
+        bufs = [trace.tier_buffer(self.plan, Ld, d, i * Ld)
+                for i, d in enumerate(self.mesh)]
+        return None if bufs[0] is None else bufs
+
+    @trace.spanned("acme.powerup")
+    def _run_powerup(self, u_time, lane_values, check):
+        """A cold ``run`` with a power-up: its first ``powerup_samples``
+        through the sibling, the rest through this runner from the state
+        the sibling left, the outputs joined."""
+        ut = np.asarray(u_time, float)
+        T0 = ut.shape[1]
+        W = min(self.powerup_samples, T0)
+        pr = self._powerup_runner()
+        if self.plan.verify_group or pr.plan.verify_group:
+            self.group_size(self._lanes(lane_values))
+        if W >= T0:
+            return pr.run(ut, lane_values, state=None, check=check)
+        y1, state, info1 = pr.run(ut[:, :W], lane_values, state=None,
+                                  check=False)
+        y2, state, info2 = self.run(ut[:, W:], lane_values, state=state,
+                                    check=False)
+        y = torch.cat([y1, y2], dim=2)
+        info = FusedInfo(*(None if a is None else a + b
+                           for a, b in zip(info1, info2)))
         if check:
             self._check_outputs(y, info)
         return y, state, info
@@ -1056,7 +1094,8 @@ class FusedRunner:
                                   for d in self.mesh]
         return self._mesh_streams
 
-    def _mesh_step(self, step, u, lv, tol, gate, state, coef, group):
+    def _mesh_step(self, step, u, lv, tol, gate, state, coef, group,
+                   stats=None):
         """``step`` (``fused_step``, or ``plain_run`` to hold the kernel
         against) once per mesh entry over the entry's contiguous lanes,
         sliced from the whole run's inputs, state and tables; the outputs
@@ -1065,7 +1104,8 @@ class FusedRunner:
         entries each launch on a stream of their own, made to wait for the
         runner's current stream, so that the launches overlap; the runner's
         stream waits for every entry before the gather.  CPU entries run
-        one after another."""
+        one after another.  ``stats``: one stats buffer per entry, on the
+        entry's device, which its launch adds to; or None."""
         n = len(self.mesh)
         Ld = lv.shape[1] // n
         lane_args = [lv, tol, gate, *coef] + [state[k] for k in STATE_KEYS]
@@ -1087,8 +1127,9 @@ class FusedRunner:
                 uu = u.to(dev)
                 lv_d, tol_d, gate_d, ch, cl, *st = [
                     t[:, sl].to(dev).contiguous() for t in lane_args]
+                kw = {} if stats is None else {"stats": stats[d]}
                 out = step(self.plan, uu, lv_d, tol_d, gate_d,
-                           dict(zip(STATE_KEYS, st)), (ch, cl), group)
+                           dict(zip(STATE_KEYS, st)), (ch, cl), group, **kw)
                 if cuda:
                     done = torch.cuda.Event()
                     done.record(s)
@@ -1253,7 +1294,8 @@ class _Plan:
 
 # -- dispatch -----------------------------------------------------------------
 
-def fused_step(plan, u, lv, tol, gate, state, coef=None, group=None):
+def fused_step(plan, u, lv, tol, gate, state, coef=None, group=None,
+               stats=None):
     """Run the fused step over the whole time axis.
 
     Inputs are float32 tensors on one device: u (T, nu_t), lv (nu_l, L),
@@ -1263,13 +1305,20 @@ def fused_step(plan, u, lv, tol, gate, state, coef=None, group=None):
     without varying coefficients).  ``group``: the lanes of one lane group
     (``FusedRunner.group_size(L)``), which a plan that couples lane groups
     (``plan.verify_group``) needs and every other plan ignores.
+    ``stats``: an int64 (counters, max(nsub, 1), L) tensor on the card to
+    which the kernel adds its tier counters (``trace.COUNTERS``), or None;
+    the plain version counts none.
     Returns (y (T, ny, L), new state, fails (L,), iters (nsub, L),
     floored (L,)).  CUDA tensors go through the kernel (or raise); the
     plain torch version runs only for CPU tensors.  A state without
     ``zlo`` or ``pmode`` gets zeros there."""
     dev = u.device
     if dev.type == "cuda":
-        return _launch_kernel(plan, u, lv, tol, gate, state, coef, group)
+        return _launch_kernel(plan, u, lv, tol, gate, state, coef, group,
+                              stats)
+    if stats is not None:
+        raise ValueError("the plain version counts no tiers: stats must be "
+                         "None on the CPU")
     if dev.type == "cpu":
         return plain_run(plan, u, lv, tol, gate, state, coef, group)
     raise ValueError(f"unsupported device {dev}")
@@ -1302,13 +1351,16 @@ def _coef_pair(plan, coef, like):
     return z, z
 
 
+@trace.spanned("acme.launch")
 def _library_call(lib, entry, plan, u, lv, tol, gate, state, coef, group,
-                  *extra):
+                  *extra, stats=None):
     """Check the inputs, allocate the outputs and call the entry ``entry``
     of library ``lib`` (the CUDA launch or its host twin) on them.  A plan
     that couples lane groups gets the group's size and, for the card, each
     group's barrier words, zeroed: (G, 4) int32 (two flag slots, the
-    arrival count and the generation)."""
+    arrival count and the generation).  ``stats``: the tier counters'
+    int64 (counters, max(nsub, 1), L) buffer the launch adds to, or
+    None."""
     L = lv.shape[1]
     Lg = _group_lanes(plan, L, group)
     T = u.shape[0]
@@ -1330,6 +1382,14 @@ def _library_call(lib, entry, plan, u, lv, tol, gate, state, coef, group,
                 f"kernel input {name}: expected a contiguous float32 "
                 f"{shp} tensor on {dev}, got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}")
+    shp = (len(trace.COUNTERS), max(plan.nsub, 1), L)
+    if stats is not None and (stats.device != dev
+                              or stats.dtype != torch.int64
+                              or tuple(stats.shape) != shp
+                              or not stats.is_contiguous()):
+        raise ValueError(
+            f"stats: expected a contiguous int64 {shp} tensor on {dev}, got "
+            f"{stats.dtype} {tuple(stats.shape)} on {stats.device}")
     y = torch.empty((T, max(plan.ny, 1), L), dtype=torch.float32,
                     device=dev)
     out = {k: torch.empty((dims[k], L), dtype=torch.float32, device=dev)
@@ -1347,7 +1407,9 @@ def _library_call(lib, entry, plan, u, lv, tol, gate, state, coef, group,
                              ctypes.c_int(T), ctypes.c_int(L),
                              ctypes.c_void_p(None if words is None
                                              else words.data_ptr()),
-                             ctypes.c_int(Lg), *extra)
+                             ctypes.c_int(Lg),
+                             ctypes.c_void_p(None if stats is None
+                                             else stats.data_ptr()), *extra)
     if rc != 0:
         # a CUDA build names its error; a host build fails only in a
         # lane group's threads or on a batch of partial groups
@@ -1356,7 +1418,8 @@ def _library_call(lib, entry, plan, u, lv, tol, gate, state, coef, group,
             if what == "cudaErrorCooperativeLaunchTooLarge":
                 what += (f": one lane group of {Lg} lanes does not fit "
                          "resident on the card, which holds "
-                         f"{resident_lanes(plan, dev, Lg)} lanes of whole "
+                         f"{resident_lanes(plan, dev, Lg, stats is not None)}"
+                         " lanes of whole "
                          "groups of this build")
         else:
             what = _HOST_ERRORS.get(rc, "unknown")
@@ -1370,25 +1433,28 @@ _HOST_ERRORS = {1: "a lane group's threads did not all start",
                 3: "a batch that is not whole lane groups"}
 
 
-def resident_lanes(plan, device, group):
+def resident_lanes(plan, device, group, traced=False):
     """The lanes of whole lane groups of ``group`` lanes that CUDA
     ``device`` holds resident at once for ``plan``'s build: the batch its
     group launches take (``csrc/fused.cu`` ``acme_resident_lanes``; 0 when
-    not one group fits)."""
+    not one group fits); ``traced``: those of its traced step, which a
+    launch with a stats buffer runs."""
     from .build import load_kernel
     lib = load_kernel(plan)
     device = torch.device(device)
     index = torch.cuda.current_device() if device.index is None \
         else device.index
     lanes = ctypes.c_int(0)
-    rc = lib.acme_resident_lanes(index, int(group), ctypes.byref(lanes))
+    rc = lib.acme_resident_lanes(index, int(group), int(bool(traced)),
+                                 ctypes.byref(lanes))
     if rc != 0:
         raise RuntimeError(f"acme_resident_lanes failed: error {rc} "
                            f"({lib.acme_cuda_error(rc).decode()})")
     return lanes.value
 
 
-def _launch_kernel(plan, u, lv, tol, gate, state, coef=None, group=None):
+def _launch_kernel(plan, u, lv, tol, gate, state, coef=None, group=None,
+                   stats=None):
     from .build import load_kernel
     lib = load_kernel(plan)
     with torch.cuda.device(u.device):
@@ -1400,7 +1466,8 @@ def _launch_kernel(plan, u, lv, tol, gate, state, coef=None, group=None):
         result = _library_call(lib, "acme_fused_launch", plan, u, lv, tol,
                                gate, state, coef, group,
                                ctypes.c_int(u.device.index),
-                               ctypes.c_void_p(stream.cuda_stream))
+                               ctypes.c_void_p(stream.cuda_stream),
+                               stats=stats)
         if timed:
             ev[1].record(stream)
             LAUNCH_EVENTS.append(tuple(ev))
@@ -1409,15 +1476,17 @@ def _launch_kernel(plan, u, lv, tol, gate, state, coef=None, group=None):
 
 
 def host_step(lib, plan, u, lv, tol, gate, state, coef=None, group=None,
-              batch=0):
+              batch=0, stats=None):
     """The kernel's own step compiled for the host (``build.load_host``),
     lane by lane on CPU tensors (a build that couples lane groups: each
     lane of a group on its own thread, one group after another), in
     batches of ``batch`` lanes at their lane offsets as the card launches
     them (0: one batch; a group build's batches are whole groups): the
-    CPU tests' view of ``csrc``."""
+    CPU tests' view of ``csrc``.  ``stats`` as for ``fused_step``: the
+    host build counts every event as the card does, and no cycles."""
     return _library_call(lib, "acme_fused_host", plan, u, lv, tol, gate,
-                         state, coef, group, ctypes.c_int(int(batch)))
+                         state, coef, group, ctypes.c_int(int(batch)),
+                         stats=stats)
 
 
 def _state_dims(plan):

@@ -7,6 +7,8 @@
     python3 chip_smoke.py --ab ROOT [ROOT ...]
                                      # the same windows of each checkout
                                      # ROOT in turns, bit for bit
+    python3 chip_smoke.py --trace-cost
+                                     # the port's tracing on against off
 
 Phases, each printed with its seconds:
   1. the device (name, power limit, torch / CUDA / nvcc versions); from
@@ -224,6 +226,18 @@ Four runs alone, with no result line:
      for bit as the first's (a digest of y, state, fails, iters and
      floored; the engine's of y, state, converged and iters), each
      checkout's kernel ms against the first's.
+  trace-cost. ``--trace-cost``: what the port's own tracing
+     (``acme_tpu_torch.trace``) costs when on, in one process: the
+     benchmark's ``full_level`` configuration (4096 input levels, its
+     guitar stream from seed 7), warmed up from cold as the benchmark
+     does, then one 4096-sample block from the same state 6 times in
+     each of the turns off, on, on, off: per call the kernel ms (CUDA
+     events) and the host ms (the call's wall ms less its kernel ms),
+     medians by turn, every call's outputs bit for bit as the first's and
+     the counts of every traced call equal; then the recorder's snapshot
+     of the traced calls (the tier shares, the spans' mean ms), and what
+     one span costs the host: off, inside ``trace.recording()`` and under
+     a ``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -305,6 +319,8 @@ SCALING_LANES = (4096, 8192, 16384, 32768)
 SCALING_SAMPLES = 4096
 # --ab: the main path's chained windows from the seeds in each visit
 AB_MAIN_WINDOWS = 2
+# --trace-cost: the calls in each turn
+TRACE_COST_CALLS = 6
 # nvcc processes at a time
 BUILD_WORKERS = 12
 # the builds held without a local-memory frame (phase 2's keys): the main
@@ -856,8 +872,10 @@ def same_outputs(label, got, want):
     (yg, sg), (yw, sw) = got[4], want[4]
     bad = [] if yg.equal(yw) else ["y"]
     bad += [k for k in sw if not sg[k].equal(sw[k])]
+    # FusedInfo.tiers: None while tracing is off
     bad += [f for f, a, b in zip(got[1]._fields, got[1], want[1])
-            if not a.equal(b)]
+            if (a is None) != (b is None)
+            or (a is not None and not a.equal(b))]
     if bad:
         raise SmokeFailure(f"{label}: not bit for bit as the unsplit run "
                            f"in {bad}")
@@ -3030,9 +3048,99 @@ def ab_main(args):
                 f"{roots[0]}'s")
 
 
+def trace_cost_main():
+    """``--trace-cost``: see the module's docstring."""
+    import contextlib
+    import statistics
+    import torch
+    from acme_tpu_torch import FusedRunner, trace
+    from acme_tpu_torch.models import superover_model
+    from acme_tpu_torch.ops import fused as F
+    sys.path.insert(0, os.path.join(HERE, "benchmark"))
+    import gen
+    dev = torch.device("cuda", 0)
+    log(f"[trace-cost] {smi()}")
+    with open(os.path.join(HERE, "benchmark", "configs",
+                           "superover_full.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(HERE, "benchmark", "traffic",
+                           "full_level.json")) as f:
+        traffic = json.load(f)
+    lanes = gen.lane_values(traffic["lanes"], 7)
+    stream = gen.Stream(traffic["stream"], 7, cfg["fs"])
+    T = int(traffic["block"])
+    fr = FusedRunner(superover_model(**cfg["model"], fs=cfg["fs"]),
+                     device=dev, **cfg["runner"])
+    W = int(cfg["runner"]["powerup_samples"])
+    _, state, _ = fr.run(stream.block(0, W)[None], lanes)
+    _, state, _ = fr.run(stream.block(W, T)[None], lanes, state=state)
+    u = stream.block(W + T, T)[None]
+    torch.cuda.synchronize(dev)
+    F.LAUNCH_EVENTS = []
+    rows = {"off": [], "on": []}
+    first = counts = sums = None
+    trace.clear()
+    for turn in ("off", "on", "on", "off"):
+        for _ in range(TRACE_COST_CALLS):
+            ctx = trace.recording() if turn == "on" \
+                else contextlib.nullcontext()
+            a = len(F.LAUNCH_EVENTS)
+            t0 = time.perf_counter()
+            with ctx:
+                y, st, info = fr.run(u, lanes, state=state)
+                torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            kms = sum(e0.elapsed_time(e1) for e0, e1 in F.LAUNCH_EVENTS[a:])
+            rows[turn].append((kms, (t1 - t0) * 1e3 - kms))
+            out = (y, *st.values(), info.fails, info.iters, info.floored)
+            if first is None:
+                first = [t.clone() for t in out]
+            elif not all(torch.equal(p, q) for p, q in zip(first, out)):
+                raise SmokeFailure("--trace-cost: a call's outputs differ "
+                                   "from the first call's")
+            if turn == "on":
+                # the recorder's sums: this call's counts are what it added
+                c = info.tiers[6:].cpu()
+                call = c - (sums if sums is not None else 0)
+                sums = c
+                if counts is None:
+                    counts = call
+                elif not torch.equal(call, counts):
+                    raise SmokeFailure("--trace-cost: two traced calls "
+                                       "counted different events")
+    F.LAUNCH_EVENTS = None
+    med = {}
+    for turn, r in rows.items():
+        k = [a for a, _ in r]
+        h = [b for _, b in r]
+        med[turn] = (statistics.median(k), statistics.median(h))
+        log(f"[trace-cost] {turn}: kernel ms {k}; host ms {h}; medians "
+            f"{med[turn][0]:.3f} / {med[turn][1]:.3f}")
+    log(f"[trace-cost] on/off: kernel ms x {med['on'][0] / med['off'][0]:.5f}"
+        f", host ms {med['on'][1] - med['off'][1]:+.3f} a call")
+    log(f"[trace-cost] snapshot {json.dumps(trace.snapshot())}")
+    # what one span costs the host: off, inside recording(), under a
+    # profiler (a call makes seven)
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    for label, ctx in (("off", contextlib.nullcontext()),
+                       ("recording", trace.recording()),
+                       ("profiler", profile(activities=acts))):
+        with ctx:
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                with trace.span("acme.cost"):
+                    pass
+            us = (time.perf_counter() - t0) / 2000 * 1e6
+        log(f"[trace-cost] one span, {label}: {us:.2f} us")
+    trace.clear()
+
+
 if __name__ == "__main__":
     try:
-        if sys.argv[1:2] == ["--scaling"]:
+        if sys.argv[1:2] == ["--trace-cost"]:
+            trace_cost_main()
+        elif sys.argv[1:2] == ["--scaling"]:
             scaling_main()
         elif sys.argv[1:2] == ["--engine"]:
             engine_main()

@@ -185,8 +185,11 @@ def test_lane_groups_match_plain_on_card():
     of the first group only (against the merge build); and a grid of
     262144 lanes, more than the card holds resident at once, runs in
     batches of whole groups and equals its 128 groups of 2048 run one at
-    a time, bit for bit in y, state, fails, iters and floored."""
+    a time, bit for bit in y, state, fails, iters and floored, as does its
+    traced launch (a stats buffer: the traced step's batches, of its own
+    resident count), which counts every lane's solves."""
     dev = _card()
+    from acme_tpu_torch import trace
     rng = np.random.default_rng(5)
     lv = np.concatenate([rng.uniform(0.01, 3.0, 1024),
                          rng.uniform(0.01, 0.05, 1024)])[:, None]
@@ -225,6 +228,12 @@ def test_lane_groups_match_plain_on_card():
     before = sum(F.LAUNCHES.values())
     whole = F.fused_step(fr.plan, u, *lane_args[:3], st, lane_args[3:], Lg)
     assert sum(F.LAUNCHES.values()) == before + 1
+    assert 0 < F.resident_lanes(fr.plan, dev, Lg, traced=True) < L
+    stats = torch.zeros((len(trace.COUNTERS), max(fr.nsub, 1), L),
+                        dtype=torch.int64, device=dev)
+    _bit_for_bit(F.fused_step(fr.plan, u, *lane_args[:3], st, lane_args[3:],
+                              Lg, stats=stats), whole)
+    assert (stats[trace.COUNTERS.index("solves")] == 16).all()
     parts = []
     for g in range(0, L, Lg):
         lv_g, tol_g, gate_g, ch, cl = [t[:, g:g + Lg].contiguous()
@@ -274,7 +283,8 @@ def test_mesh_of_one_card_matches_one_device(config):
     for k in s1:
         assert torch.equal(sm[k], s1[k]), k
     for a, b in zip(im, i1):
-        assert torch.equal(a, b)
+        # tiers: None while tracing is off
+        assert (a is None and b is None) or torch.equal(a, b)
 
 
 def _bit_for_bit(got, want):
@@ -362,6 +372,62 @@ def test_main_build_has_no_frame_on_card(build):
     for frame, stores, loads in rows:
         assert int(frame) <= FRAME_BYTES, out
         assert int(stores) == 0 and int(loads) == 0, out
+
+
+@pytest.mark.cuda
+def test_tier_counters_on_card(tmp_path):
+    """The kernel's tier counters (``trace``) on the full path, 256 input
+    levels: its power-up sibling's 16 samples from cold, then 16 of the
+    production build, alone and over the mesh (cuda:0, cuda:0).  Each
+    launch's outputs are bit for bit with the stats buffer set and unset;
+    its counts equal the host build's for the same inputs, the evaluations
+    of the fast, polish and redo tiers sum to iters and the redos are at
+    most the solves, T x nsub; every lane's tier cycles sum to no more
+    than its launch's, which the card counts."""
+    dev = _card()
+    from acme_tpu_torch import trace
+    from acme_tpu_torch.ops.build import load_host
+    model = S.build_model("level", "full")
+    fr = FusedRunner(copy.deepcopy(model), device=dev, lane_scale_idx=(0,),
+                     powerup="safe", powerup_samples=16, **PROD)
+    L, T = 256, 16
+    lv = np.linspace(0.1, 2.0, L)[:, None]
+    u_time = (0.2 * np.sin(2 * np.pi * 1000 / FS * np.arange(2 * T)))[None]
+    state = None
+    for r, ut in ((fr._powerup_runner(), u_time[:, :T]),
+                  (fr, u_time[:, T:])):
+        u, lvt, tol, gate = r.prepare_inputs(ut, lv)
+        st = r.initial_state(L) if state is None else state
+        args = (r.plan, u, lvt, tol, gate, st, r._coef_tables(L))
+        shape = (len(trace.COUNTERS), max(r.nsub, 1), L)
+        stats = torch.zeros(shape, dtype=torch.int64, device=dev)
+        got = F.fused_step(*args, stats=stats)
+        _bit_for_bit(got, F.fused_step(*args))
+        host = torch.zeros(shape, dtype=torch.int64)
+        cpu = [a.cpu() if torch.is_tensor(a) else a for a in args[1:5]]
+        F.host_step(load_host(r.plan, str(tmp_path)), r.plan, *cpu,
+                    {k: v.cpu() for k, v in st.items()},
+                    tuple(c.cpu() for c in r._coef_tables(L)), stats=host)
+        c = {k: stats[i].cpu() for i, k in enumerate(trace.COUNTERS)}
+        for i, k in enumerate(trace.COUNTERS[6:], 6):
+            assert torch.equal(c[k], host[i]), k
+        assert torch.equal(c["ev_fast"] + c["ev_polish"] + c["ev_redo"],
+                           got[3].cpu().long())
+        assert (c["solves"] == T).all()
+        assert (c["redos"] <= c["solves"]).all()
+        tiers = sum(c[k] for k in trace.TIERS).sum(0)
+        assert (c["total"][0] > 0).all()
+        assert (tiers <= c["total"].sum(0)).all()
+        state = got[1]
+    trace.clear()
+    with trace.recording():
+        _, _, one = fr.run(u_time[:, T:], lv, state=st)
+        mesh = FusedRunner(copy.deepcopy(model), device=dev,
+                           mesh=(dev, dev), lane_scale_idx=(0,),
+                           powerup="safe", powerup_samples=16, **PROD)
+        _, _, two = mesh.run(u_time[:, T:], lv, state=st)
+    assert one.tiers.shape == two.tiers.shape == shape
+    assert torch.equal(one.tiers[6:], two.tiers[6:])
 
 
 # -- the float64 scan engine (csrc/scan.cu) -----------------------------------

@@ -209,7 +209,8 @@ def test_group_lanes_is_inert_elsewhere(kw):
         for k in st:
             assert torch.equal(st[k], s0[k]), k
         for a, b in zip(info, i0):
-            assert torch.equal(a, b)
+            # tiers: None while tracing is off
+            assert (a is None and b is None) or torch.equal(a, b)
 
 
 def test_lanes_must_fill_blocks_in_group_mode():

@@ -73,7 +73,8 @@ def assert_same(a, b):
     for k in sa:
         assert torch.equal(sa[k], sb[k]), k
     for name, x, y in zip(ia._fields, ia, ib):
-        assert torch.equal(x, y), name
+        # tiers: None while tracing is off
+        assert (x is None and y is None) or torch.equal(x, y), name
 
 
 def port(kw, mesh=None, model=TM.diodeclipper_model, **extra):

@@ -211,7 +211,8 @@ def test_state_without_zlo_pmode_runs():
         for k in F.STATE_KEYS:
             assert torch.equal(got[1][k], want[1][k]), k
         for a, b in zip(got[2], want[2]):
-            assert torch.equal(a, b)
+            # tiers: None while tracing is off
+            assert (a is None and b is None) or torch.equal(a, b)
     args = fr.prepare_inputs(u, lv)
     got = F.plain_run(fr.plan, *args, six, fr._coef_tables(128))
     want = F.plain_run(fr.plan, *args, zero, fr._coef_tables(128))
